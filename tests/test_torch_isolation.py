@@ -1,0 +1,104 @@
+"""The port stands alone: no module of `repro_torch`, and not
+`chip_smoke.py`, imports jax or the reference package `repro`, and the
+port's entry points run on CUDA by default, raising (not falling back to
+the CPU) where there is none."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    assert path.exists(), path
+    bad = _imported_roots(path) & set(BANNED)
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_import_with_jax_and_reference_poisoned():
+    """Import every module of the port (and chip_smoke) in a fresh
+    interpreter where importing jax or repro fails."""
+    code = f"""
+import importlib, pkgutil, runpy, sys
+for name in {BANNED!r}:
+    sys.modules[name] = None
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+for m in mods:
+    importlib.import_module(m)
+runpy.run_path({str(ROOT / "chip_smoke.py")!r}, run_name="chip_smoke")
+leaked = sorted(n for n in sys.modules
+                if n.split(".")[0] in {BANNED!r} and sys.modules[n] is not None)
+assert not leaked, leaked
+print(len(mods))
+"""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    import repro_torch.configs as cfgs
+    from repro_torch.launch import serve
+    from repro_torch.models import get_api, transformer
+    from repro_torch.tdsim.policy import quant_policy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arch = cfgs.get_smoke("qwen3-8b")
+    cfg = arch.model
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.run(arch, 1, 2, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--smoke", "--batch", "1", "--prompt-len", "2",
+                    "--gen", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_api(cfg)["init"](0, cfg, quant_policy())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_caches(1, 4, cfg)
+    # an explicit CPU device runs
+    caches = transformer.init_caches(1, 4, cfg, device="cpu")
+    assert caches[0]["k"].device.type == "cpu"
+
+
+def test_kernel_wrappers_use_plain_version_only_for_cpu_tensors():
+    """A tensor on neither the CPU nor CUDA is refused, never computed by
+    the plain version; CPU tensors do not count as kernel launches."""
+    from repro_torch.kernels.decode_gqa import decode_gqa as dec
+    from repro_torch.kernels.td_vmm import td_vmm as tv
+    x = torch.zeros((2, 8), dtype=torch.int32, device="meta")
+    w = torch.zeros((8, 3), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tv.td_vmm(x, w, torch.zeros(2, device="meta"),
+                  torch.zeros(1, dtype=torch.int64, device="meta"),
+                  bits_a=4, bits_w=4, n_chain=8)
+    n = dec.launches
+    q = torch.zeros((1, 4, 8))
+    kv = torch.zeros((1, 5, 2, 8))
+    dec.decode_gqa(q, kv, kv, torch.tensor([3], dtype=torch.int32))
+    assert dec.launches == n
