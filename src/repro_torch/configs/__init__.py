@@ -1,7 +1,7 @@
 """Architecture registry of the port: `--arch <id>` resolution.
 
-Only ``qwen3-8b`` is ported so far (ROADMAP §1 step 13 lists the other
-families); any other name raises.
+The dense decoders ``qwen3-8b`` and ``granite-8b`` are ported so far
+(ROADMAP §1 step 13 lists the other families); any other name raises.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from repro_torch.configs.base import (ArchConfig, ModelCfg, MoECfg, RWKVCfg,
                                       TrainCfg)
 
 _MODULES = {
+    "granite-8b": "repro_torch.configs.granite_8b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
 }
 

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-KERNELS = ("td_vmm", "flash_attn", "decode_gqa")
+KERNELS = ("td_vmm", "flash_attn", "decode_gqa", "lsq_quant")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # no --use_fast_math: logf/cosf/sqrtf and division stay IEEE-accurate,

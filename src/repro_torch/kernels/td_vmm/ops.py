@@ -3,8 +3,10 @@
 ``td_vmm_seeded`` flattens leading batch dims and runs the kernel wrapper
 with the policy's (sigma_chain, tdc_q) and the seed as device tensors.  The
 contraction is not padded: the kernel masks positions past K itself.  The
-operand tensors are made once per (device, sigma, q, seed) and reused, so a
-call copies nothing from the host.
+(sigma, q) operand is made once per (device, sigma, q) and reused; the seed
+operand is filled on the device from the host integer (a fill kernel takes
+the value as an argument), so a call copies nothing from the host and
+never waits for the device, however many seeds a run derives.
 """
 from __future__ import annotations
 
@@ -13,19 +15,18 @@ import torch
 from repro_torch.kernels.td_vmm import ref as td_ref
 from repro_torch.kernels.td_vmm.td_vmm import td_vmm as td_vmm_kernel
 
-_operands: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+_params: dict[tuple, torch.Tensor] = {}
 
 
 def runtime_operands(sigma: float, tdc_q: float, seed: int,
                      device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(params f32 [sigma, q], seed int64 (1,)) on ``device``, memoized."""
-    key = (torch.device(device), float(sigma), float(tdc_q), int(seed))
-    if key not in _operands:
-        _operands[key] = (
-            torch.tensor([float(sigma), float(tdc_q)], dtype=torch.float32,
-                         device=device),
-            torch.tensor([int(seed)], dtype=torch.int64, device=device))
-    return _operands[key]
+    """(params f32 [sigma, q] (memoized), seed int64 (1,)) on ``device``."""
+    key = (torch.device(device), float(sigma), float(tdc_q))
+    if key not in _params:
+        _params[key] = torch.tensor([float(sigma), float(tdc_q)],
+                                    dtype=torch.float32, device=device)
+    return _params[key], torch.full((1,), int(seed), dtype=torch.int64,
+                                    device=device)
 
 
 def td_vmm_seeded(x_int: torch.Tensor, w_int: torch.Tensor, pol,

@@ -1,1 +1,2 @@
-"""Launchers of the port: serve steps and the fixed-batch serve loop."""
+"""Launchers of the port: the train and serve steps, the train driver and
+the fixed-batch serve loop."""

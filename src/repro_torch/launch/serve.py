@@ -21,8 +21,9 @@ from torch.profiler import record_function
 
 import repro_torch.configs as cfgs
 from repro_torch import device as device_mod
-from repro_torch.configs.base import ShapeCfg, TDExecCfg
+from repro_torch.configs.base import ShapeCfg
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch import td_cli
 from repro_torch.models import common, get_api
 
 
@@ -122,9 +123,7 @@ def main(argv=None):
             f"--{given[0].replace('_', '-')} is not yet ported to "
             "repro_torch (ROADMAP.md §1)")
     arch = cfgs.get_smoke(args.arch) if args.smoke else cfgs.get(args.arch)
-    if args.td:
-        arch = arch.replace(td=TDExecCfg(mode=args.td, n_chain=min(
-            576, arch.model.d_model)))
+    arch = td_cli.apply_td_args(arch, args.td)
     return run(arch, args.batch, args.prompt_len, args.gen, seed=args.seed,
                device=args.device)
 

@@ -45,19 +45,21 @@ def attn_init(gen: torch.Generator, cfg: ModelCfg, pol, dtype=torch.float32,
 
 def attention(params: dict, x: torch.Tensor, cfg: ModelCfg, pol,
               positions: torch.Tensor, cache: dict | None = None,
-              causal: bool = True,
+              causal: bool = True, key=None,
               attn_pols=None) -> tuple[torch.Tensor, dict | None]:
-    """Self-attention with an optional KV cache; x (B, S, d)."""
+    """Self-attention with an optional KV cache; x (B, S, d).  ``key``
+    seeds the four denses' noise (``fold_key(key, 0..3)``)."""
     if attn_pols is not None:
         raise NotImplementedError("TD attention (td_attention) is not yet "
                                   "ported (ROADMAP.md §1, step 9)")
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dev = x.device
+    kq, kk, kv_, ko = (common.fold_key(key, i) for i in range(4))
 
-    q = common.dense(params["wq"], x, pol).reshape(b, s, hq, hd)
-    k = common.dense(params["wk"], x, pol).reshape(b, s, hkv, hd)
-    v = common.dense(params["wv"], x, pol).reshape(b, s, hkv, hd)
+    q = common.dense(params["wq"], x, pol, kq).reshape(b, s, hq, hd)
+    k = common.dense(params["wk"], x, pol, kk).reshape(b, s, hkv, hd)
+    v = common.dense(params["wv"], x, pol, kv_).reshape(b, s, hkv, hd)
     if cfg.qk_norm and "q_norm" in params:
         q = common.rmsnorm(params["q_norm"], q, cfg.rms_eps)
         k = common.rmsnorm(params["k_norm"], k, cfg.rms_eps)
@@ -96,7 +98,7 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelCfg, pol,
         o = flash_attention(q.contiguous(), k_use.contiguous(),
                             v_use.contiguous(), kv_len, q_offset,
                             causal=causal)
-    y = common.dense(params["wo"], o.reshape(b, s, hq * hd), pol)
+    y = common.dense(params["wo"], o.reshape(b, s, hq * hd), pol, ko)
     return y, new_cache
 
 

@@ -1,5 +1,6 @@
 """Shared model building blocks (port of `repro/models/common.py`): policy
-resolution, the dense layer, RMSNorm, RoPE, embeddings and dtype casts.
+resolution, the dense layer, RMSNorm, RoPE, embeddings, the cross-entropy
+loss, PRNG key folding and dtype casts.
 
 Parameters are plain nested dicts of tensors, laid out as in the reference
 (a dense weight is (K, N) and ``dense`` computes ``x @ w``), so that
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import ArchConfig, TDExecCfg
 from repro_torch.tdsim import policy as td_policy
 from repro_torch.tdsim import td_linear
@@ -113,6 +115,30 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32,
 
 def embed(params: dict, ids: torch.Tensor) -> torch.Tensor:
     return params["table"][ids]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None,
+                  z_coef: float = 1e-4) -> torch.Tensor:
+    """Mean next-token CE with z-loss; logits (..., V), labels (...)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    loss = (lse - ll) + z_coef * lse ** 2
+    if mask is not None:
+        loss = loss * mask
+        return loss.sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss.mean()
+
+
+def fold_key(key, *idx: int):
+    """``jax.random.fold_in`` over ``idx`` in turn; a key is a host pair of
+    uint32 words (`repro_torch.prng`), None stays None."""
+    if key is None:
+        return None
+    for i in idx:
+        key = prng.fold_in(key, i)
+    return key
 
 
 def cast_tree(tree, dtype):

@@ -24,7 +24,8 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
-def swiglu(params: dict, x: torch.Tensor, pol) -> torch.Tensor:
-    h = silu(common.dense(params["wg"], x, pol)) \
-        * common.dense(params["wi"], x, pol)
-    return common.dense(params["wo"], h, pol)
+def swiglu(params: dict, x: torch.Tensor, pol, key=None) -> torch.Tensor:
+    k1, k2, k3 = (common.fold_key(key, i) for i in range(3))
+    h = silu(common.dense(params["wg"], x, pol, k1)) \
+        * common.dense(params["wi"], x, pol, k2)
+    return common.dense(params["wo"], h, pol, k3)

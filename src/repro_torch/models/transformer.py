@@ -7,10 +7,15 @@ Layer anatomy (pre-norm residual):
 
 The other mixers (mamba2, rwkv6, shared attention) and FFNs (MoE, RWKV
 channel mix), stub frontends and tied embeddings come with their families.
+
+Keys: layer i's mixer denses draw their noise seeds under
+``fold_key(key, 2i)``, its FFN under ``fold_key(key, 2i + 1)``, lm_head
+under ``fold_key(key, 10_000)``, as in the reference.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelCfg
@@ -62,12 +67,36 @@ def init_params(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
     return params
 
 
+def _layer_apply(lp: dict, x: torch.Tensor, cfg: ModelCfg, pol, i: int,
+                 positions: torch.Tensor, cache: dict | None, key,
+                 attn_pols=None) -> tuple[torch.Tensor, dict | None]:
+    kmix = common.fold_key(key, 2 * i)
+    kffn = common.fold_key(key, 2 * i + 1)
+    h = common.rmsnorm(lp["ln1"], x, cfg.rms_eps)
+    y, new_cache = attention.attention(lp["attn"], h, cfg, pol, positions,
+                                       cache=cache, key=kmix,
+                                       attn_pols=attn_pols)
+    x = x + y
+    h = common.rmsnorm(lp["ln2"], x, cfg.rms_eps)
+    return x + ffn.swiglu(lp["mlp"], h, pol, kffn), new_cache
+
+
 def forward(params: dict, batch: dict, cfg: ModelCfg, pol,
             caches: list | None = None,
-            positions: torch.Tensor | None = None
+            positions: torch.Tensor | None = None,
+            key=None, remat: str = "none"
             ) -> tuple[torch.Tensor, list | None, dict]:
-    """Returns (logits, new_caches, aux).  batch: {"tokens": (B, S)}."""
+    """Returns (logits, new_caches, aux).  batch: {"tokens": (B, S)}.
+
+    ``remat="full"`` recomputes each layer in the backward
+    (`torch.utils.checkpoint`, the reference's `jax.checkpoint`), keeping
+    only the layer inputs.  The recomputed td matmuls draw the same noise
+    as the first pass: the noise is a counter hash of the seed, with no
+    generator state to restore.  ``"dots"`` is not ported."""
     _check_supported(cfg)
+    if remat not in ("none", "full"):
+        raise NotImplementedError(f"remat={remat!r} is not yet ported to "
+                                  "repro_torch (ported: none, full)")
     tokens = batch["tokens"]
     x = common.embed(params["embed"], tokens)
     s = x.shape[1]
@@ -76,17 +105,18 @@ def forward(params: dict, batch: dict, cfg: ModelCfg, pol,
     attn_pols = common.pol_attn(pol)
     new_caches: list = [None] * cfg.n_layers
     for i, lp in enumerate(params["layers"]):
-        pol_i = common.pol_at(pol, i)
         cache = caches[i] if caches is not None else None
-        h = common.rmsnorm(lp["ln1"], x, cfg.rms_eps)
-        y, new_caches[i] = attention.attention(lp["attn"], h, cfg, pol_i,
-                                               positions, cache=cache,
-                                               attn_pols=attn_pols)
-        x = x + y
-        h = common.rmsnorm(lp["ln2"], x, cfg.rms_eps)
-        x = x + ffn.swiglu(lp["mlp"], h, pol_i)
+        args = (lp, x, cfg, common.pol_at(pol, i), i, positions, cache, key,
+                attn_pols)
+        if remat == "full":
+            x, new_caches[i] = torch.utils.checkpoint.checkpoint(
+                _layer_apply, *args, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, new_caches[i] = _layer_apply(*args)
     x = common.rmsnorm(params["final_norm"], x, cfg.rms_eps)
-    logits = common.dense(params["lm_head"], x, common.pol_top(pol))
+    logits = common.dense(params["lm_head"], x, common.pol_top(pol),
+                          common.fold_key(key, 10_000))
     return logits, (new_caches if caches is not None else None), {}
 
 

@@ -1,17 +1,20 @@
 """TD execution simulator: a matmul that computes y = x @ w the way the
-paper's time-domain hardware would (port of the forward of
-`repro/tdsim/td_linear.py`).
+paper's time-domain hardware would (port of `repro/tdsim/td_linear.py`).
 
 Mode "td": LSQ-quantize x and w to signed codes, run the TD-VMM kernel
 (offset encoding, bit-serial planes, per-chain noise, TDC rounding and the
 side sums in one launch) and dequantize with s_a * s_w.  Like the
 reference, every td matmul quantizes the full weight matrix on each call.
-The straight-through backward (`_td_matmul_ste_bwd`) comes with the
-training slice; here everything runs forward only.
+Gradients are straight-through (`_TDMatmulSTE`, the reference's
+`_td_matmul_ste`): the backward is the gradient of the fake-quant LSQ
+matmul `_fq_matmul`, recomputed there, so its two `lsq_fake_quant` calls
+run the lsq_quant kernel in the backward only.  Mode "quant" is
+`_fq_matmul` itself.
 
-With ``key=None`` the noise seed is ``derive_seed((0, 0))``: the reference
-seeds every keyless TD matmul from ``PRNGKey(0)``, and the serve steps pass
-no key.
+``key`` is a raw two-word uint32 PRNG key (`repro_torch.prng`); the noise
+seed is ``derive_seed(key)``.  With ``key=None`` it is
+``derive_seed((0, 0))``: the reference seeds every keyless TD matmul from
+``PRNGKey(0)``, and the serve steps pass no key.
 """
 from __future__ import annotations
 
@@ -69,17 +72,43 @@ def td_matmul_int(x_int: torch.Tensor, w_int: torch.Tensor, pol: TDPolicy,
 
 
 def _fq_matmul(x, w, s_a, s_w, bits_a: int, bits_w: int):
-    """Fake-quant LSQ matmul (the reference's STE backward function; the
-    forward of "quant" mode)."""
+    """Differentiable fake-quant LSQ matmul: the STE backward function and
+    the forward of "quant" mode."""
     x_fq = lsq.lsq_fake_quant(x, s_a, bits_a, signed=True)
     w_fq = lsq.lsq_fake_quant(w, s_w, bits_w, signed=True)
     return x_fq @ w_fq
 
 
+class _TDMatmulSTE(torch.autograd.Function):
+    """Kernel forward, fake-quant backward.  Saves (x, w, s_a, s_w) and
+    gives sigma, q and the seed (host values of ``pol`` and ``seed``) no
+    gradient, as the reference's zero cotangents do."""
+
+    @staticmethod
+    def forward(ctx, x, w, s_a, s_w, pol: TDPolicy, seed: int):
+        x_int = lsq.lsq_quantize_int(x, s_a, pol.bits_a, signed=True)
+        w_int = lsq.lsq_quantize_int(w, s_w, pol.bits_w, signed=True)
+        y_int = td_ops.td_vmm_seeded(x_int, w_int, pol, seed)
+        y = y_int * (torch.clamp(s_a, min=1e-8) * torch.clamp(s_w, min=1e-8))
+        ctx.save_for_backward(x, w, s_a, s_w)
+        ctx.bits = (pol.bits_a, pol.bits_w)
+        return y.to(torch.promote_types(x.dtype, w.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in saved]
+            y = _fq_matmul(*leaves, *ctx.bits)
+            grads = torch.autograd.grad(y, leaves, g.to(y.dtype))
+        return (*grads, None, None)
+
+
 def td_matmul(x: torch.Tensor, w: torch.Tensor, s_a, s_w, pol: TDPolicy,
               key=None) -> torch.Tensor:
-    """TD-simulated matmul with LSQ scales.  x (..., K), w (K, N); ``key``
-    a raw two-word uint32 PRNG key, None meaning ``(0, 0)``."""
+    """TD-simulated matmul with LSQ scales and STE gradients.  x (..., K),
+    w (K, N); ``key`` a raw two-word uint32 PRNG key, None meaning
+    ``(0, 0)``."""
     if pol.mode == "precise":
         return x @ w
     if pol.mode == "quant":
@@ -87,11 +116,7 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, s_a, s_w, pol: TDPolicy,
     if pol.mode != "td":
         raise ValueError(f"unknown td mode {pol.mode!r}")
     seed = td_ref.derive_seed((0, 0) if key is None else key)
-    x_int = lsq.lsq_quantize_int(x, s_a, pol.bits_a, signed=True)
-    w_int = lsq.lsq_quantize_int(w, s_w, pol.bits_w, signed=True)
-    y_int = td_ops.td_vmm_seeded(x_int, w_int, pol, seed)
-    y = y_int * (torch.clamp(s_a, min=1e-8) * torch.clamp(s_w, min=1e-8))
-    return y.to(torch.promote_types(x.dtype, w.dtype))
+    return _TDMatmulSTE.apply(x, w, s_a, s_w, pol, seed)
 
 
 def linear(params: dict, x: torch.Tensor, pol: TDPolicy,

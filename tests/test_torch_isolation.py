@@ -65,7 +65,8 @@ print(len(mods))
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     import repro_torch.configs as cfgs
-    from repro_torch.launch import serve
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import serve, train
     from repro_torch.models import get_api, transformer
     from repro_torch.tdsim.policy import quant_policy
 
@@ -77,6 +78,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--smoke", "--batch", "1", "--prompt-len", "2",
                     "--gen", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.run(arch, ShapeCfg("t", 4, 2, "train"), 1, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--smoke", "--steps", "1", "--seq", "4", "--batch", "2"])
     with pytest.raises(RuntimeError, match="CUDA"):
         get_api(cfg)["init"](0, cfg, quant_policy())
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -90,6 +95,7 @@ def test_kernel_wrappers_use_plain_version_only_for_cpu_tensors():
     """A tensor on neither the CPU nor CUDA is refused, never computed by
     the plain version; CPU tensors do not count as kernel launches."""
     from repro_torch.kernels.decode_gqa import decode_gqa as dec
+    from repro_torch.kernels.lsq_quant import lsq_quant as lq
     from repro_torch.kernels.td_vmm import td_vmm as tv
     x = torch.zeros((2, 8), dtype=torch.int32, device="meta")
     w = torch.zeros((8, 3), dtype=torch.int32, device="meta")
@@ -102,3 +108,9 @@ def test_kernel_wrappers_use_plain_version_only_for_cpu_tensors():
     kv = torch.zeros((1, 5, 2, 8))
     dec.decode_gqa(q, kv, kv, torch.tensor([3], dtype=torch.int32))
     assert dec.launches == n
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        lq.lsq_quant(torch.zeros(8, device="meta"),
+                     torch.zeros((), device="meta"), -8, 7)
+    n = lq.launches
+    lq.lsq_quant(torch.zeros(8), torch.tensor(0.5), -8, 7)
+    assert lq.launches == n

@@ -140,4 +140,4 @@ def test_run_and_cli_on_cpu(capsys):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tserve.main(["--smoke", "--scheduler", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcfgs.get("granite-8b")
+        tcfgs.get("dbrx-132b")
