@@ -5,15 +5,23 @@
 1. builds the four CUDA kernels of the serve and train paths from
    `src/repro_torch/csrc` (one nvcc per source, all at once) and prints
    ptxas's register and spill report;
-2. prints the card's name and power limit (nvidia-smi);
+2. prints the card's name and power limit (nvidia-smi) and the floor of
+   the device-time yardstick (an event pair around an empty kernel);
 3. runs the port's smoke model on the card and on the CPU (plain versions
    of the kernels): serving (tokens and logits) and two train steps
    (losses, gradient norms, parameters);
 4. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (qwen3-8b at full width: serve batch 4, prompt 128;
-   train microbatch 1 x 128 and every weight of the 4-layer model), and
-   times kernel, plain version and, where one exists, the PyTorch library
-   call computing the same function, with CUDA events after a warm-up;
+   train microbatch 1 x 128 and every weight of the 4-layer model), at
+   the attention kernels' edge cases (query tiles, split chunks, masked
+   rows) and at one long shape each (flash_attn at train_4k's microbatch,
+   Sq 4096; decode_gqa at decode_32k's length, S 32768), holding the
+   attention kernels also to a bf16 ulp of each output and to a share of
+   differing outputs (see `_cmp`); times kernel, plain version and, where
+   one exists, the PyTorch library call computing the same function, in
+   turns, as device time (see `device_ms`), decode_gqa with a cold L2;
+   prints host us per call and, for attention, the kernels' own CUPTI
+   time;
 5. serves full-width qwen3-8b in td mode (random seeded weights, bf16,
    36 layers, batch 4, prompt 128, 16 new tokens) through
    `repro_torch.launch.serve.run`, then trains full-width qwen3-8b cut to
@@ -24,7 +32,8 @@
    path must have run exactly as often as the path calls it, the tokens
    must be in range and the losses finite;
 6. profiles a shorter serve run and a td train step under torch.profiler
-   and prints where the device time goes; a profiler failure fails the run.
+   and prints where the device time goes, attention's device time per
+   launch included; a profiler failure fails the run.
 
 Prints one JSON line describing every kernel, then, last, the result line
 `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result, on
@@ -46,6 +55,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 
 SERVE = dict(batch=4, prompt_len=128, gen=16)
+# device kernel names of each port kernel, for the profile
+KERNEL_NAMES = {"td_vmm": ("td_vmm_kernel",),
+                "lsq_quant": ("lsq_quant_kernel",),
+                "flash_attn": ("flash_wg", "flash_attn_kernel"),
+                "decode_gqa": ("decode_split",)}
 TRAIN = dict(layers=4, seq=128, batch=8, td_steps=3, quant_steps=1)
 
 
@@ -64,33 +78,207 @@ def import_port():
         fail(f"repro_torch comes from {repro_torch.__file__}, not {ROOT}")
 
 
-def gpu_line() -> str:
+def gpu_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()
     return out[0]
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
+def gpu_state() -> str:
+    """SM clock, power draw and temperature now (beside timings)."""
+    return gpu_line("clocks.sm,power.draw,temperature.gpu")
+
+
+# ---------------------------------------------------------------------------
+# Device time.  A kernel of a few microseconds runs faster than Python can
+# enqueue it, so events around a loop of launches would time the host.  Here
+# every launch is queued behind a spin of the device (torch.cuda._sleep)
+# that lasts longer than the host takes to enqueue them all, and each launch
+# sits between its own pair of events: the device reaches each start event
+# with the launch already queued behind it.  The time is the median over the
+# launches.  Timed cold, the launches are separated by a write of a buffer
+# larger than the 50 MB L2, outside the events.
+L2_FLUSH_BYTES = 256 * 2**20
+
+_spin_ms_per_cycle = None
+_flush_buf = None
+
+
+def _spin_rate() -> float:
+    """Device ms per cycle of torch.cuda._sleep, measured once."""
+    global _spin_ms_per_cycle
+    if _spin_ms_per_cycle is None:
+        import torch
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(100_000)
+        a.record()
+        torch.cuda._sleep(20_000_000)
+        b.record()
+        torch.cuda.synchronize()
+        _spin_ms_per_cycle = a.elapsed_time(b) / 20_000_000
+    return _spin_ms_per_cycle
+
+
+def _spin(ms: float) -> None:
     import torch
-    for _ in range(warmup):
-        fn()
+    torch.cuda._sleep(max(1, int(ms / _spin_rate())))
+
+
+def flush_l2(release: bool = False) -> None:
+    """Write a buffer larger than the L2 (allocated at first use); with
+    ``release`` free it instead, before the paths run."""
+    global _flush_buf
+    import torch
+    if release:
+        _flush_buf = None
+        torch.cuda.empty_cache()
+        return
+    if _flush_buf is None:
+        _flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                 device="cuda")
+    _flush_buf.zero_()
+
+
+def device_ms(fn, reps: int, cold: bool = False, must_cover: bool = True):
+    """Per-launch device times (ms) of ``fn``, each launch queued behind a
+    spin that outlasts the host's enqueue of all of them (see above).
+    Returns (times, covered); ``covered`` is False if the host still
+    outran the spin after three retries, and then fails the run unless
+    ``must_cover`` is False (plain versions that sync inside)."""
+    import torch
+    Event = torch.cuda.Event
+    fn()
+    fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+    t0 = time.perf_counter()
+    if cold:
+        flush_l2()
+    fn()
+    est_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    spin_ms = 3.0 * reps * est_ms + 1.0
+    for _ in range(4):
+        ev = [(Event(enable_timing=True), Event(enable_timing=True))
+              for _ in range(reps)]
+        s0, s1 = Event(enable_timing=True), Event(enable_timing=True)
+        s0.record()
+        _spin(spin_ms)
+        s1.record()
+        t0 = time.perf_counter()
+        for a, b in ev:
+            if cold:
+                flush_l2()
+            a.record()
+            fn()
+            b.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        times = [a.elapsed_time(b) for a, b in ev]
+        if s0.elapsed_time(s1) >= host_ms:
+            return times, True
+        spin_ms = 4 * max(spin_ms, host_ms)
+    if must_cover:
+        fail(f"the host enqueue ({host_ms:.1f} ms) outran a {spin_ms:.1f} ms"
+             f" spin: device times would include host gaps")
+    return times, False
+
+
+def host_us(fn, n: int = 20) -> float:
+    """Host wall time of one call of ``fn`` (what the caller pays to
+    enqueue it, the device held busy so the queue never blocks)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    est_ms = (time.perf_counter() - t0) * 1e3
+    _spin(3.0 * n * est_ms + 1.0)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def kernel_us(fn, n: int = 20):
+    """The device time of the kernels one call of ``fn`` launches, alone,
+    from torch.profiler's CUPTI trace: (summed kernel durations per call in
+    us, kernels per call), mean over ``n`` calls.  Unlike an event pair it
+    leaves out the launch's own cost on the device."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    # a trace now and then comes back without the device's activity: up to
+    # three traces are taken
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ks:
+            return (sum(e.time_range.end - e.time_range.start
+                        for e in ks) / n, len(ks) / n)
+    fail("kernel_us: three traces held no device time")
+
+
+def in_turns(tag: str, label: str, fns: dict, reps: dict,
+             cold: bool = False, alone: bool = False) -> dict:
+    """Times ``fns`` ("plain", "kernel" and, where given, "library") in
+    turns in one run: plain, kernel, library, kernel, plain.  Returns the
+    median device ms of each over both of its turns and the host us per
+    call of kernel and library (and, with ``alone``, their kernels' own
+    device time from `kernel_us`); prints every turn."""
+    order = [n for n in ("plain", "kernel", "library", "kernel", "plain")
+             if n in fns]
+    times = {n: [] for n in fns}
+    turns = []
+    for n in order:
+        t, covered = device_ms(fns[n], reps[n], cold,
+                               must_cover=n != "plain")
+        times[n] += t
+        turns.append(f"{n} {statistics.median(t):.5f}"
+                     + ("" if covered else " (host-bound)"))
+    out = {f"{n}_ms": statistics.median(t) for n, t in times.items()}
+    for n in ("kernel", "library"):
+        if n in fns:
+            out[f"{n}_host_us"] = host_us(fns[n])
+    l2 = "cold" if cold else "warm"
+    print(f"[{tag}] {label}: device ms in turns ({l2} L2, median of each "
+          f"turn's launches): {', '.join(turns)}; host us per call: "
+          + ", ".join(f"{n} {out[f'{n}_host_us']:.1f}"
+                      for n in ("kernel", "library") if n in fns))
+    if alone:
+        for n in ("kernel", "library"):
+            if n in fns:
+                out[f"{n}_alone_us"], out[f"{n}_kernels"] = kernel_us(fns[n])
+        print(f"[{tag}] {label}: kernels alone (CUPTI, warm L2): " + ", ".join(
+            f"{n} {out[f'{n}_alone_us']:.2f} us in {out[f'{n}_kernels']:g} "
+            f"kernel(s) a call" for n in ("kernel", "library") if n in fns))
+    return out
 
 
 def bound_ms(bytes_moved: float, ops: float, op_type: str):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[op_type] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_yardstick():
+    """The floor of the device-time yardstick: an event pair around an
+    empty kernel, warm and cold."""
+    import torch
+    for cold in (False, True):
+        t, _ = device_ms(lambda: torch.cuda._sleep(0), 30, cold)
+        print(f"[yardstick] event pair around an empty kernel "
+              f"({'cold' if cold else 'warm'}): median "
+              f"{statistics.median(t):.5f} ms, min {min(t):.5f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -272,17 +460,19 @@ def phase_td_vmm(rows: list):
             del want
         par = torch.tensor([pol.sigma_chain, float(pol.tdc_q)],
                            dtype=torch.float32, device="cuda")
-        ms = time_ms(lambda: tv.td_vmm(x, w, par, seed, **kw), reps=5)
-        plain_ms = time_ms(lambda: tv.td_vmm_plain(x, w, par, seed, **kw),
-                           reps=2, warmup=1)
+        t = in_turns("td_vmm", label, {
+            "plain": lambda: tv.td_vmm_plain(x, w, par, seed, **kw),
+            "kernel": lambda: tv.td_vmm(x, w, par, seed, **kw)},
+            {"plain": 2, "kernel": 5})
         k_pad = -(-k // 576) * 576
         b_ms, b_by = bound_ms(4 * (m * k + k * n + m * n),
                               2 * m * k_pad * n * 4, "int8")
-        print(f"[td_vmm] {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by})")
+        print(f"[td_vmm] {label}: kernel {t['kernel_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         if main is None:
-            main = dict(shape=f"{label} M={m} K={k} N={n}", ms=ms,
-                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            main = dict(shape=f"{label} M={m} K={k} N={n}",
+                        ms=t["kernel_ms"], plain_ms=t["plain_ms"],
+                        bound_ms=b_ms, bound_by=b_by)
         del x, w
     rows.append(dict(name="td_vmm", route="cuda",
                      source="src/repro_torch/csrc/td_vmm.cu",
@@ -298,104 +488,249 @@ def _sdpa(q, k, v, causal):
         q, k, v, is_causal=causal, enable_gqa=True)
 
 
+# Besides the absolute 2e-2, bf16 attention outputs are held to one bf16
+# ulp of the plain version's (at most 2^-7 |plain|), with a floor of 2^-8
+# of the output's rms for elements near 0, where f32 sums in another order
+# move the value by more than its own ulp; and to a share of differing
+# outputs.  The absolute limit alone passes a kernel that drops a split
+# chunk at a long shape, where outputs are about 0.01; the share catches
+# a P rounded to one bf16 in the second product (27-40% of flash's outputs
+# differ then, 0.14-0.35% with P_hi + P_lo: PERF.md, Findings).
+ATOL_BF16 = 2e-2
+MAX_DIFFERING = 0.01
+
+
+def _cmp(got, want):
+    """(max |got - want|, share of output elements that differ, ulp
+    error): the ulp error is max |got - want| / (2^-7 |want| + 2^-8
+    rms(want)), at most 1 when every output is within one bf16 ulp of the
+    plain version's (see above)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = float(diff.max())
+    rms = float(w.square().mean().sqrt())
+    if rms > 0:
+        ulp = float((diff / (w.abs() * 2.0 ** -7 + rms * 2.0 ** -8)).max())
+    else:                                   # the plain output is all 0
+        ulp = 0.0 if err == 0 else math.inf
+    return err, float((got != want).float().mean()), ulp
+
+
+def _close(err: float, frac: float, ulp: float) -> bool:
+    return err <= ATOL_BF16 and frac <= MAX_DIFFERING and ulp <= 1.0
+
+
+def _randn(gen, shape):
+    import torch
+    return torch.randn(shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+
+
+def _i32(vals):
+    import torch
+    return torch.tensor(vals, dtype=torch.int32, device="cuda")
+
+
+def flash_bound(b, sq, kv_lens, hq, hkv, d, causal):
+    """Bound of one flash_attn call (q_offset 0): q and o once, the live
+    key prefix of k and v once (bf16), 4 D operations per live (query,
+    key) pair."""
+    pairs = 0
+    for n in kv_lens:
+        for i in range(sq):
+            pairs += min(n, i + 1) if causal else n
+    return bound_ms(2 * (2 * b * sq * hq * d + 2 * sum(kv_lens) * hkv * d),
+                    4 * pairs * hq * d, "bf16")
+
+
 def phase_flash(rows: list):
+    """flash_attn against its plain version on the card (bf16, tolerance
+    2e-2): the serve prefill and train microbatch shapes, ragged kv_len with
+    a fully masked row and q_offset, non-causal, Sq around the query tiles,
+    g from 1 to 16, and train_4k's microbatch; then device time in turns
+    with SDPA at the serve prefill, the train microbatch and train_4k."""
     import torch
     from repro_torch.kernels.flash_attn import flash_attn as fa
-    b, sq, s_cache, hq, hkv, d = 4, SERVE["prompt_len"], \
-        SERVE["prompt_len"] + SERVE["gen"], 32, 8, 128
     gen = torch.Generator(device="cuda").manual_seed(1)
-    q = torch.randn((b, sq, hq, d), generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
-    k = torch.randn((b, s_cache, hkv, d), generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
-    v = torch.randn((b, s_cache, hkv, d), generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
-    kv_len = torch.full((b,), sq, dtype=torch.int32, device="cuda")
-    off = torch.zeros((1,), dtype=torch.int32, device="cuda")
-    errs = []
-    for case_len, case_off, causal in ((kv_len, off, True),
-                                       (torch.tensor([sq, 0, 77, s_cache],
-                                                     dtype=torch.int32,
-                                                     device="cuda"),
-                                        torch.tensor([5], dtype=torch.int32,
-                                                     device="cuda"), True),
-                                       (kv_len, off, False)):
-        got = fa.flash_attn(q, k, v, case_len, case_off, causal=causal)
-        want = fa.flash_attn_plain(q, k, v, case_len, case_off,
-                                   causal=causal)
-        errs.append(float((got.float() - want.float()).abs().max()))
-    print(f"[flash_attn] max |kernel - plain| per case {errs} "
-          f"(tolerance 2e-2, bf16)")
-    if not max(errs) <= 2e-2:
-        fail("flash_attn disagrees with its plain version")
-    ms = time_ms(lambda: fa.flash_attn(q, k, v, kv_len, off), reps=20)
-    plain_ms = time_ms(lambda: fa.flash_attn_plain(q, k, v, kv_len, off),
-                       reps=5)
-    qt = q.transpose(1, 2).contiguous()
-    kt = k[:, :sq].transpose(1, 2).contiguous()
-    vt = v[:, :sq].transpose(1, 2).contiguous()
-    lib_out = _sdpa(qt, kt, vt, True).transpose(1, 2)
-    lib_err = float((lib_out.float() - fa.flash_attn(
-        q, k, v, kv_len, off).float()).abs().max())
-    lib_ms = time_ms(lambda: _sdpa(qt, kt, vt, True), reps=20)
-    pairs = b * hq * sq * (sq + 1) // 2          # causal live (query, key)
-    b_ms, b_by = bound_ms(2 * (2 * b * sq * hq * d + 2 * b * sq * hkv * d),
-                          4 * pairs * d, "bf16")
-    print(f"[flash_attn] B={b} Sq={sq} cache={s_cache} Hq={hq} Hkv={hkv} "
-          f"D={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-          f"{lib_ms:.4f} ms (|kernel - sdpa| {lib_err:.3e}), bound "
-          f"{b_ms:.5f} ms ({b_by})")
+    s_cache = SERVE["prompt_len"] + SERVE["gen"]
+    checks = [  # (label, B, Sq, Skv, Hq, Hkv, kv_len, q_offset, causal)
+        ("serve prefill", 4, 128, s_cache, 32, 8, [128] * 4, 0, True),
+        ("ragged kv_len, row 1 fully masked, q_offset 5", 4, 128, s_cache,
+         32, 8, [128, 0, 77, s_cache], 5, True),
+        ("non-causal", 4, 128, s_cache, 32, 8, [128] * 4, 0, False),
+        ("train microbatch", 1, 128, 128, 32, 8, [128], 0, True)]
+    for sq in (7, 8, 9, 15, 16, 17, 31, 33):   # query tiles of 8, 16 rows
+        checks.append((f"Sq {sq}, q_offset 5", 2, sq, sq + 5, 32, 8,
+                       [sq + 5, sq], 5, True))
+    for hq in (8, 16, 24, 64, 128):             # g = 1, 2, 3, 8, 16
+        checks.append((f"g {hq // 8}", 2, 40, 48, hq, 8, [48, 33], 3, True))
+    checks.append(("train_4k microbatch", 1, 4096, 4096, 32, 8, [4096], 0,
+                   True))
+    max_err = 0.0
+    for label, b, sq, skv, hq, hkv, lens, off, causal in checks:
+        d = 128
+        q = _randn(gen, (b, sq, hq, d))
+        k = _randn(gen, (b, skv, hkv, d))
+        v = _randn(gen, (b, skv, hkv, d))
+        args = (q, k, v, _i32(lens), _i32([off]))
+        want = fa.flash_attn_plain(*args, causal=causal)
+        dead = [i for i, n in enumerate(lens) if n == 0]
+        got = fa.flash_attn(*args, causal=causal)
+        torch.cuda.synchronize()
+        err, frac, ulp = _cmp(got, want)
+        zero = all(not bool(got[i].any()) for i in dead)
+        print(f"[flash_attn] {label}: B={b} Sq={sq} Skv={skv} Hq={hq} "
+              f"Hkv={hkv} kv_len={lens} causal={causal}: max |kernel - "
+              f"plain| {err:g}, in bf16 ulps {ulp:.3f}, differing {frac:.4f}"
+              + (f", rows with no live key exactly 0: {zero}"
+                 if dead else ""))
+        if not _close(err, frac, ulp) or not zero:
+            fail(f"flash_attn disagrees with its plain version ({label})")
+        max_err = max(max_err, err)
+        del q, k, v, args, got, want
+    torch.cuda.empty_cache()
+
+    timed = {}
+    print(f"[flash_attn] card before timing: {gpu_state()}")
+    for label, b, sq, skv, reps in (("serve prefill", 4, 128, s_cache, 30),
+                                    ("train microbatch", 1, 128, 128, 30),
+                                    ("train_4k microbatch", 1, 4096, 4096,
+                                     10)):
+        hq, hkv, d = 32, 8, 128
+        q = _randn(gen, (b, sq, hq, d))
+        k = _randn(gen, (b, skv, hkv, d))
+        v = _randn(gen, (b, skv, hkv, d))
+        kv_len, off = _i32([sq] * b), _i32([0])
+        qt = q.transpose(1, 2).contiguous()
+        kt = k[:, :sq].transpose(1, 2).contiguous()
+        vt = v[:, :sq].transpose(1, 2).contiguous()
+        lib_err = float((_sdpa(qt, kt, vt, True).transpose(1, 2).float()
+                         - fa.flash_attn(q, k, v, kv_len, off).float())
+                        .abs().max())
+        t = in_turns("flash_attn", label, {
+            "plain": lambda: fa.flash_attn_plain(q, k, v, kv_len, off),
+            "kernel": lambda: fa.flash_attn(q, k, v, kv_len, off),
+            "library": lambda: _sdpa(qt, kt, vt, True)},
+            {"plain": 2 if sq > 1024 else 5, "kernel": reps,
+             "library": reps}, alone=True)
+        b_ms, b_by = flash_bound(b, sq, [sq] * b, hq, hkv, d, True)
+        print(f"[flash_attn] {label}: B={b} Sq={sq} cache={skv} Hq={hq} "
+              f"Hkv={hkv} D={d} causal, kv_split "
+              f"{fa.flash_plan(b, sq, hq, hkv)}: "
+              f"kernel {t['kernel_ms']:.5f} ms, "
+              f"plain {t['plain_ms']:.5f} ms, sdpa {t['library_ms']:.5f} ms "
+              f"(|kernel - sdpa| {lib_err:.3e}), bound {b_ms:.5f} ms "
+              f"({b_by}): kernel at {b_ms / t['kernel_ms']:.1%} of its "
+              f"bound, {t['kernel_ms'] / t['library_ms']:.2f}x sdpa")
+        timed[label] = dict(t, bound_ms=b_ms, bound_by=b_by,
+                            shape=f"B={b} Sq={sq} S_cache={skv} Hq={hq} "
+                            f"Hkv={hkv} D={d} causal")
+        print(f"[flash_attn] card after timing {label}: {gpu_state()}")
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    main = timed["serve prefill"]
     rows.append(dict(name="flash_attn", route="cuda",
                      source="src/repro_torch/csrc/flash_attn.cu",
                      replaces="src/repro/kernels/flash_attn/flash_attn.py:55",
-                     max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                     shape=f"prefill B={b} Sq={sq} S_cache={s_cache} "
-                     f"Hq={hq} Hkv={hkv} D={d} causal"))
+                     max_abs_err=max_err, ms=main["kernel_ms"],
+                     plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                     bound_by=main["bound_by"], library_ms=main["library_ms"],
+                     shape="prefill " + main["shape"], timed=timed))
 
 
 def phase_decode(rows: list):
+    """decode_gqa against its plain version on the card (bf16, tolerance
+    2e-2): the decode shape (B 4, S 144), lengths 0, 1, around the split
+    chunk, S and past S, and decode_32k's length (B 4, S 32768); the split
+    partials and their combine against the plain split version; then
+    device time in turns with SDPA, cold L2 (decode streams the whole model
+    between two uses of a layer's cache)."""
     import torch
     from repro_torch.kernels.decode_gqa import decode_gqa as dg
-    b, s_cache, hq, hkv, d = 4, SERVE["prompt_len"] + SERVE["gen"], 32, 8, \
-        128
-    length = SERVE["prompt_len"] + SERVE["gen"] // 2
     gen = torch.Generator(device="cuda").manual_seed(2)
-    q = torch.randn((b, hq, d), generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
-    k = torch.randn((b, s_cache, hkv, d), generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
-    v = torch.randn((b, s_cache, hkv, d), generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
-    lens = torch.full((b,), length, dtype=torch.int32, device="cuda")
-    errs = []
-    for case in (lens, torch.tensor([0, 1, length, s_cache + 9],
-                                    dtype=torch.int32, device="cuda")):
-        got = dg.decode_gqa(q, k, v, case)
-        want = dg.decode_gqa_plain(q, k, v, case)
-        errs.append(float((got.float() - want.float()).abs().max()))
-    print(f"[decode_gqa] max |kernel - plain| per case {errs} "
-          f"(tolerance 2e-2, bf16)")
-    if not max(errs) <= 2e-2:
-        fail("decode_gqa disagrees with its plain version")
-    ms = time_ms(lambda: dg.decode_gqa(q, k, v, lens), reps=50)
-    plain_ms = time_ms(lambda: dg.decode_gqa_plain(q, k, v, lens), reps=20)
-    qt = q[:, :, None].contiguous()
-    kt = k[:, :length].transpose(1, 2).contiguous()
-    vt = v[:, :length].transpose(1, 2).contiguous()
-    lib_ms = time_ms(lambda: _sdpa(qt, kt, vt, False), reps=50)
-    b_ms, b_by = bound_ms(2 * (2 * b * hq * d + 2 * b * length * hkv * d),
-                          4 * b * hq * length * d, "bf16")
-    print(f"[decode_gqa] B={b} S={s_cache} length={length} Hq={hq} "
-          f"Hkv={hkv} D={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    b, hq, hkv, d = 4, 32, 8, 128
+    s_main = SERVE["prompt_len"] + SERVE["gen"]
+    length = SERVE["prompt_len"] + SERVE["gen"] // 2
+    max_err = 0.0
+    timed = {}
+    for label, s in (("decode", s_main), ("decode_32k", 32768)):
+        q = _randn(gen, (b, hq, d))
+        k = _randn(gen, (b, s, hkv, d))
+        v = _randn(gen, (b, s, hkv, d))
+        full = length if s == s_main else s
+        n_split, chunk = dg.split_plan(s, b, hkv)
+        print(f"[decode_gqa] {label}: S={s} split into {n_split} chunks of "
+              f"{chunk} keys: {n_split * b * hkv} blocks")
+        for lens in ([full] * b, [0, 1, s // 2, s + 9],
+                     [chunk - 1, chunk, chunk + 1, s],
+                     [0, 2 * chunk - 1, 2 * chunk + 1, s - 1]):
+            lt = _i32(lens)
+            got = dg.decode_gqa(q, k, v, lt)
+            want = dg.decode_gqa_plain(q, k, v, lt)
+            sp = dg.decode_gqa_split_plain(q, k, v, lt, chunk)
+            part = dg.decode_gqa_partials(q, k, v, lt)
+            want_p = dg.split_partials_plain(q, k, v, lt, chunk)
+            torch.cuda.synchronize()
+            err, frac, ulp = _cmp(got, want)
+            err_s, frac_s, ulp_s = _cmp(got, sp)
+            err_p = max(_partials_err(x, y) for x, y in zip(part, want_p))
+            zero = all(not bool(got[i].any()) for i, n in enumerate(lens)
+                       if n == 0)
+            print(f"[decode_gqa] {label} lengths {lens}: max |kernel - "
+                  f"plain| {err:g}, in bf16 ulps {ulp:.3f}, differing "
+                  f"{frac:.4f}, length-0 rows exactly 0: {zero}; vs the "
+                  f"plain split version {err_s:g}, in bf16 ulps "
+                  f"{ulp_s:.3f}, differing {frac_s:.4f}; partials (m, l, "
+                  f"acc) max rel err {err_p:.2e}")
+            ok = _close(err, frac, ulp) and _close(err_s, frac_s, ulp_s) \
+                and zero and err_p <= 1e-4
+            if not ok:
+                fail(f"decode_gqa disagrees with its plain version "
+                     f"({label}, lengths {lens})")
+            max_err = max(max_err, err)
+        lens = _i32([full] * b)
+        qt = q[:, :, None].contiguous()
+        kt = k[:, :full].transpose(1, 2).contiguous()
+        vt = v[:, :full].transpose(1, 2).contiguous()
+        t = in_turns("decode_gqa", label, {
+            "plain": lambda: dg.decode_gqa_plain(q, k, v, lens),
+            "kernel": lambda: dg.decode_gqa(q, k, v, lens),
+            "library": lambda: _sdpa(qt, kt, vt, False)},
+            {"plain": 5, "kernel": 30, "library": 30}, cold=True,
+            alone=True)
+        b_ms, b_by = bound_ms(2 * (2 * b * hq * d + 2 * b * full * hkv * d),
+                              4 * b * hq * full * d, "bf16")
+        print(f"[decode_gqa] {label}: B={b} S={s} length={full} Hq={hq} "
+              f"Hkv={hkv} D={d}: kernel {t['kernel_ms']:.5f} ms, plain "
+              f"{t['plain_ms']:.5f} ms, sdpa {t['library_ms']:.5f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}): kernel at "
+              f"{b_ms / t['kernel_ms']:.1%} of its bound, "
+              f"{t['kernel_ms'] / t['library_ms']:.2f}x sdpa")
+        timed[label] = dict(t, bound_ms=b_ms, bound_by=b_by,
+                            shape=f"B={b} S={s} length={full} Hq={hq} "
+                            f"Hkv={hkv} D={d}")
+        print(f"[decode_gqa] card after timing {label}: {gpu_state()}")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    main = timed["decode"]
     rows.append(dict(name="decode_gqa", route="cuda",
                      source="src/repro_torch/csrc/decode_gqa.cu",
                      replaces="src/repro/kernels/decode_gqa/decode_gqa.py:45",
-                     max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                     shape=f"decode B={b} S={s_cache} length={length} "
-                     f"Hq={hq} Hkv={hkv} D={d}"))
+                     max_abs_err=max_err, ms=main["kernel_ms"],
+                     plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                     bound_by=main["bound_by"], library_ms=main["library_ms"],
+                     shape="decode " + main["shape"], timed=timed))
+
+
+def _partials_err(x, y) -> float:
+    """Largest |x - y| / max(|y|, 1) over the live entries (m of an empty
+    chunk is NEG_INF in both)."""
+    import torch
+    live = y > -1e29
+    if not torch.equal(live, x > -1e29):
+        return math.inf
+    return float(((x - y).abs() / y.abs().clamp(min=1.0))[live].max()) \
+        if bool(live.any()) else 0.0
 
 
 def _bits_equal(a, b) -> bool:
@@ -459,41 +794,42 @@ def phase_lsq_quant(rows: list):
     if max_err != 0.0:
         fail("lsq_quant is not bit-exact with its plain version")
 
+    # the library yardstick multiplies by 1/scale (not the same function);
+    # timed in bf16 where the installed torch takes it, else in f32 over
+    # the same element count
     timed = {}
     for label, shape in (("lm_head", (d, v)), ("mlp.wi", (d, f))):
         x = (torch.randn(shape, generator=gen, device="cuda") * 0.1).to(
             torch.bfloat16)
         s = torch.tensor(0.0371, device="cuda").to(torch.bfloat16)
-        ms = time_ms(lambda: lq.lsq_quant(x, s, -8, 7), reps=20)
-        plain_ms = time_ms(lambda: lsq_quant_ref(x, s, -8, 7), reps=5)
+        lib_in, lib_dtype, s_f = x, "bf16", float(s)
+        try:
+            torch.fake_quantize_per_tensor_affine(lib_in, s_f, 0, -8, 7)
+        except RuntimeError as e:
+            print(f"[lsq_quant] fake_quantize_per_tensor_affine refuses bf16 "
+                  f"({str(e).splitlines()[0][:80]}); timed in f32")
+            lib_in, lib_dtype = x.float(), "f32"
+        t = in_turns("lsq_quant", f"{label} {tuple(shape)} bf16", {
+            "plain": lambda: lsq_quant_ref(x, s, -8, 7),
+            "kernel": lambda: lq.lsq_quant(x, s, -8, 7),
+            "library": lambda: torch.fake_quantize_per_tensor_affine(
+                lib_in, s_f, 0, -8, 7)},
+            {"plain": 5, "kernel": 20, "library": 20})
         b_ms, b_by = bound_ms(2 * x.numel() * x.element_size(), 0, "bf16")
-        timed[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, x=x, s=s)
-        print(f"[lsq_quant] {label} {tuple(shape)} bf16: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    main = timed.pop("lm_head")
-    x, s = main.pop("x"), main.pop("s")
-    del timed
-    # the library yardstick multiplies by 1/scale (not the same function);
-    # timed in bf16 where the installed torch takes it, else in f32 over
-    # the same element count
-    lib_in, lib_dtype, s_f = x, "bf16", float(s)
-    try:
-        torch.fake_quantize_per_tensor_affine(lib_in, s_f, 0, -8, 7)
-    except RuntimeError as e:
-        print(f"[lsq_quant] fake_quantize_per_tensor_affine refuses bf16 "
-              f"({str(e).splitlines()[0][:80]}); timed in f32")
-        lib_in, lib_dtype = x.float(), "f32"
-    lib_ms = time_ms(lambda: torch.fake_quantize_per_tensor_affine(
-        lib_in, s_f, 0, -8, 7), reps=20)
-    print(f"[lsq_quant] lm_head: torch.fake_quantize_per_tensor_affine "
-          f"({lib_dtype}) {lib_ms:.4f} ms")
+        timed[label] = dict(ms=t["kernel_ms"], plain_ms=t["plain_ms"],
+                            library_ms=t["library_ms"], bound_ms=b_ms,
+                            bound_by=b_by)
+        print(f"[lsq_quant] {label} {tuple(shape)} bf16: kernel "
+              f"{t['kernel_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"torch.fake_quantize_per_tensor_affine ({lib_dtype}) "
+              f"{t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del x, s, lib_in
     rows.append(dict(name="lsq_quant", route="cuda",
                      source="src/repro_torch/csrc/lsq_quant.cu",
                      replaces="src/repro/kernels/lsq_quant/lsq_quant.py:14",
-                     max_abs_err=max_err, library_ms=lib_ms,
-                     shape=f"lm_head weight {d} x {v} bf16", **main))
-    del x, s, lib_in
+                     max_abs_err=max_err,
+                     shape=f"lm_head weight {d} x {v} bf16",
+                     **timed["lm_head"]))
 
 
 def kernel_modules() -> dict:
@@ -655,17 +991,24 @@ def _span_report(prof, span: str, which: slice, side: str = "host") -> None:
           f"kernels {busy / 1e3:.1f} ms in {sum(count.values())} launches, "
           f"device idle {1 - busy / wall:.3f}")
     kinds = collections.Counter()
+    kind_n = collections.Counter()
     for name, us in by_name.items():
-        kind = next((k for k in ("td_vmm", "lsq_quant", "flash_attn",
-                                 "decode_gqa") if f"{k}_kernel" in name), None)
+        kind = next((k for k, tags in KERNEL_NAMES.items()
+                     if any(t in name for t in tags)), None)
         if kind is None:
             kind = ("matmul (cuBLAS)" if any(
                 t in name for t in ("gemm", "cutlass", "xmma", "nvjet"))
                 else "other (elementwise, copies, reductions)")
         kinds[kind] += us
+        kind_n[kind] += count[name]
     print(f"[profile] {span} by kind: " + ", ".join(
         f"{k} {us / 1e3:.2f} ms ({us / busy:.1%})"
         for k, us in kinds.most_common()))
+    for k in ("flash_attn", "decode_gqa"):
+        if kind_n[k]:
+            print(f"[profile] {span} {k}: {kinds[k] / 1e3:.3f} ms in "
+                  f"{kind_n[k]} launches, {kinds[k] / kind_n[k]:.2f} us of "
+                  f"device time a launch")
     for name, us in by_name.most_common(10):
         print(f"[profile]   {us / 1e3:9.2f} ms {us / busy:6.1%} "
               f"x{count[name]:<5d} {name[:110]}")
@@ -710,6 +1053,7 @@ def main() -> None:
           f", CUDA {torch.version.cuda}")
     phase_build()
     print(gpu_line())
+    phase_yardstick()
     phase_small_reference()
     phase_train_small()
     rows: list = []
@@ -717,6 +1061,10 @@ def main() -> None:
     phase_flash(rows)
     phase_decode(rows)
     phase_lsq_quant(rows)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "launches_by_path", "timed")
+    flush_l2(release=True)
     launches: dict = {}
     for phase in (phase_serve, phase_train):
         torch.cuda.empty_cache()
@@ -733,10 +1081,8 @@ def main() -> None:
                     "library_ms"):
             if r[key] is not None and not math.isfinite(r[key]):
                 fail(f"{r['name']}: {key} is {r[key]}")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "launches_by_path")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

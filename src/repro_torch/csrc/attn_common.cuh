@@ -1,9 +1,11 @@
-// Online-softmax attention over KV tiles, shared by flash_attn.cu and
-// decode_gqa.cu.  One block of NT threads owns R query rows (R <= MAX_ROWS)
-// that all attend to the same KV head, as the Pallas kernels' (g, bq) row
-// groups do.  Scores and probabilities live only in shared memory; the
-// running (m, l) per row sit in shared memory and the output accumulator
-// in registers, all in float32.
+// Online-softmax attention over KV tiles on CUDA cores, in f32: the path
+// of flash_attn.cu for f32 queries or an f32 cache (its bf16 path runs on
+// the tensor cores, decode_gqa.cu has its own split kernel).  One block
+// of NT threads owns R query rows (R <= MAX_ROWS) that all attend to the
+// same KV head, as the Pallas kernels' (g, bq) row groups do.  Scores and
+// probabilities live only in shared memory; the running (m, l) per row
+// sit in shared memory and the output accumulator in registers, all in
+// float32.
 //
 // Numerics follow the Pallas kernels: masked scores are NEG_INF, masked
 // probabilities are zeroed explicitly (NEG_INF - NEG_INF == 0 would

@@ -3,8 +3,10 @@
 Replaces the Pallas TPU kernel `_kernel`
 (src/repro/kernels/flash_attn/flash_attn.py:55, launched at :174 by
 `_flash_attn_call`).  The CUDA kernel is `csrc/flash_attn.cu` (with
-`csrc/attn_common.cuh`); its header says what bounds it on the H100 and
-how its design answers that.
+`csrc/attn_common.cuh` for its f32 paths); its header says what bounds
+it on the H100 and how its design answers that.  `flash_plan` decides on
+the host whether two blocks share each query tile's keys (when the query
+tiles alone would leave SMs idle).
 
 ``flash_attn(q, k, v, kv_len, q_offset, causal=True)``: q (B, Sq, Hq, D),
 k/v (B, Skv, Hkv, D) in float32 or bfloat16, ``kv_len`` (B,) int32 valid
@@ -25,6 +27,8 @@ from repro_torch.kernels.attn_common import (DTYPE_FLAG, check_float,
 
 launches = 0          # kernel launches since the last reset
 
+SMS = 132             # the H100's streaming multiprocessors
+
 _fn = None
 
 
@@ -33,10 +37,20 @@ def _kernel():
     if _fn is None:
         fn = build.load("flash_attn").flash_attn_launch
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def flash_plan(b: int, sq: int, hq: int, hkv: int) -> int:
+    """Blocks sharing each 64-row query tile's key tiles on the
+    tensor-core path: 2 (a thread block cluster) when the query tiles alone
+    would leave SMs idle, else 1."""
+    g = hq // hkv
+    if g > 64:
+        raise ValueError(f"flash_attn kernel needs Hq/Hkv <= 64, got {g}")
+    return 2 if b * hkv * -(-sq // (64 // g)) < SMS else 1
 
 
 def _check(q, k, v, kv_len, q_offset):
@@ -69,16 +83,20 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attn runs on cuda or cpu, not {q.device}")
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    if d > 128 or hq // hkv > 64:
-        raise ValueError(f"flash_attn kernel needs D <= 128 and "
-                         f"Hq/Hkv <= 64, got D={d}, g={hq // hkv}")
+    if d > 128:
+        raise ValueError(f"flash_attn kernel needs D <= 128, got D={d}")
+    kv_split = flash_plan(b, sq, hq, hkv)        # raises past g = 64
+    if not (q.dtype == k.dtype == torch.bfloat16 and d == 128):
+        kv_split = 1                              # the CUDA-core path
     out = torch.empty_like(q)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("flash_attn kernel wants 16-byte aligned operands")
     if out.numel():
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        kv_len.data_ptr(), q_offset.data_ptr(),
                        out.data_ptr(), b, sq, skv, hq, hkv, d, int(causal),
                        d ** -0.5, DTYPE_FLAG[q.dtype], DTYPE_FLAG[k.dtype],
-                       build.stream_ptr(q.device))
+                       kv_split, build.stream_ptr(q.device))
         build.check(rc, "flash_attn")
         launches += 1
     return out
