@@ -56,7 +56,7 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 
 SERVE = dict(batch=4, prompt_len=128, gen=16)
 # device kernel names of each port kernel, for the profile
-KERNEL_NAMES = {"td_vmm": ("td_vmm_kernel",),
+KERNEL_NAMES = {"td_vmm": ("td_vmm_block", "td_vmm_split"),
                 "lsq_quant": ("lsq_quant_kernel",),
                 "flash_attn": ("flash_wg", "flash_attn_kernel"),
                 "decode_gqa": ("decode_split",)}
@@ -230,12 +230,14 @@ def kernel_us(fn, n: int = 20):
 
 def in_turns(tag: str, label: str, fns: dict, reps: dict,
              cold: bool = False, alone: bool = False) -> dict:
-    """Times ``fns`` ("plain", "kernel" and, where given, "library") in
-    turns in one run: plain, kernel, library, kernel, plain.  Returns the
+    """Times ``fns`` ("plain", "kernel" and, where given, "library" or
+    another variant) in turns in one run: plain, kernel, the others,
+    kernel, plain.  Returns the
     median device ms of each over both of its turns and the host us per
     call of kernel and library (and, with ``alone``, their kernels' own
     device time from `kernel_us`); prints every turn."""
-    order = [n for n in ("plain", "kernel", "library", "kernel", "plain")
+    mid = [n for n in fns if n not in ("plain", "kernel")]
+    order = [n for n in ("plain", "kernel", *mid, "kernel", "plain")
              if n in fns]
     times = {n: [] for n in fns}
     turns = []
@@ -290,8 +292,10 @@ def phase_build():
           f"{time.monotonic() - t0:.1f} s into {build.BUILD_DIR}")
     for name, text in reports.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if "Function properties for" in line:
+                print(f"[build] {name}: {line.split(' for ')[-1][:60]}")
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name}:   {line.strip()}")
 
 
 def phase_small_reference():
@@ -412,72 +416,223 @@ def phase_train_small():
 
 
 # ---------------------------------------------------------------------------
+# td_vmm's shapes on the main paths (qwen3-8b), timed: (label, M, K, N,
+# cold L2, bits_a, bits_w).  Decode reads each weight once per token, so it
+# is timed cold.  The last row times the solved policies' narrower widths,
+# whose epilogue computes only the noise chains its planes use.
+TD_VMM_TIMED = [
+    ("prefill mlp.wi", 512, 4096, 12288, False, 4, 4),
+    ("prefill mlp.wo", 512, 12288, 4096, False, 4, 4),
+    ("train mlp.wi", 128, 4096, 12288, False, 4, 4),  # one microbatch
+    ("train lm_head", 128, 4096, 151936, False, 4, 4),
+    ("decode attn.wk", 4, 4096, 1024, True, 4, 4),
+    ("decode mlp.wi", 4, 4096, 12288, True, 4, 4),
+    ("decode lm_head", 4, 4096, 151936, True, 4, 4),
+    ("prefill mlp.wi, bits 2/3", 512, 4096, 12288, False, 2, 3),
+]
+# ragged shapes through both routes, (M, K, N, n_chain), at these widths
+TD_VMM_RAGGED = [(5, 100, 70, 16), (9, 161, 130, 48), (130, 1200, 200, 576)]
+TD_VMM_BITS = [(4, 4), (8, 8), (2, 3), (1, 4)]
+
+# td_vmm's noise arithmetic alone, from csrc/td_vmm_noise.cuh: a loop trip
+# is one noisy plane output as the epilogue computes it at q == 1 (z, sigma
+# * z added, rint, the 2^b accumulation), from registers; NOISY false is
+# the same loop without z.  The difference of their device times at a
+# shape's count of noisy plane outputs is the floor of its noise epilogue.
+_NOISE_PROBE = r"""
+#include <cuda_runtime.h>
+#include "td_vmm_noise.cuh"
+template <bool NOISY>
+__global__ void __launch_bounds__(256)
+noise_probe(float* out, unsigned n, float sig, unsigned seed) {
+  const unsigned t0 = blockIdx.x * blockDim.x + threadIdx.x;
+  float acc = 0.0f;
+#pragma unroll 4
+  for (unsigned i = t0; i < n; i += gridDim.x * blockDim.x) {
+    float part = (float)(i & 1023u);
+    if (NOISY) part = __fadd_rn(part, __fmul_rn(sig, gauss(i, seed)));
+    acc = __fadd_rn(acc, __fmul_rn(2.0f, rintf(part)));
+  }
+  out[t0] = acc;
+}
+extern "C" int noise_probe_launch(int noisy, float* out, unsigned n,
+                                  int blocks, float sig, unsigned seed,
+                                  void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (noisy)
+    noise_probe<true><<<blocks, 256, 0, s>>>(out, n, sig, seed);
+  else
+    noise_probe<false><<<blocks, 256, 0, s>>>(out, n, sig, seed);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def td_vmm_noise_probe():
+    """Builds the probe above into build/td_vmm_probe/ and returns
+    ``floor(n_outputs, sigma) -> (noise ms, noisy ms, base ms)``: the
+    median device time of the probe with and without z over n_outputs,
+    timed in turns (base, noisy, noisy, base)."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    out_dir = ROOT / "build" / "td_vmm_probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, lib = out_dir / "noise_probe.cu", out_dir / "libnoise_probe.so"
+    src.write_text(_NOISE_PROBE)
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+                    "-o", str(lib), str(src)], check=True,
+                   capture_output=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).noise_probe_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_uint,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count * 4
+    buf = torch.empty(blocks * 256, dtype=torch.float32, device="cuda")
+    stream = build.stream_ptr(buf.device)
+
+    def floor(n_outputs: int, sigma: float):
+        runs = {0: [], 1: []}
+        for noisy in (0, 1, 1, 0):
+            def call():
+                build.check(fn(noisy, buf.data_ptr(), n_outputs, blocks,
+                               sigma, 33350994, stream), "noise probe")
+            runs[noisy] += device_ms(call, 5)[0]
+        noisy_ms = statistics.median(runs[1])
+        base_ms = statistics.median(runs[0])
+        return noisy_ms - base_ms, noisy_ms, base_ms
+    return floor
+
+
+def _codes(gen, shape, bits):
+    import torch
+    h = 2 ** (bits - 1)
+    return torch.randint(-h, h, shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def _td_vmm_check(tv, label, x, w, seed, kw, noisy) -> float:
+    """The kernel against its plain version at sigma 0 (q 1 and 3: bit-exact)
+    and at each (sigma, q) of ``noisy`` (at most 1e-4 of outputs may differ,
+    each by a multiple of q: a z within ulps of a rounding boundary may flip
+    one plane's TDC step q * 2^b).  Returns the largest |kernel - plain|."""
+    import torch
+    m, k = x.shape
+    plan = tv.td_vmm_plan(m, k, w.shape[1], kw["n_chain"], kw["bits_a"])
+    err_max = 0.0
+    for sigma, q in [(0.0, 1.0), (0.0, 3.0), *noisy]:
+        par = torch.tensor([sigma, q], dtype=torch.float32, device="cuda")
+        got = tv.td_vmm(x, w, par, seed, **kw)
+        want = tv.td_vmm_plain(x, w, par, seed, **kw)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err = float(diff.max())
+        err_max = max(err_max, err)
+        frac = float((diff != 0).float().mean())
+        print(f"[td_vmm] {label} M={m} K={k} N={w.shape[1]} bits "
+              f"{kw['bits_a']}/{kw['bits_w']} n_chain {kw['n_chain']}, route "
+              f"{plan.route}: sigma={sigma:.4f} q={q:g}: max |kernel - "
+              f"plain| {err:g}, differing {frac:.2e}")
+        if sigma == 0.0 and err != 0.0:
+            fail(f"td_vmm not bit-exact at sigma=0 ({label}, q={q})")
+        if sigma != 0.0 and (frac > 1e-4 or bool(
+                torch.any(torch.remainder(got - want, q) != 0))):
+            fail(f"td_vmm noisy outputs disagree ({label})")
+        del got, want, diff
+    return err_max
+
+
 def phase_td_vmm(rows: list):
+    """td_vmm against its plain version on the card through both routes:
+    the ragged shapes at four bit widths, then the main paths' shapes;
+    then device time in turns (plain, kernel at the solved sigma, kernel at
+    sigma 0, kernel, plain) at the main paths' shapes, decode with a cold
+    L2; at M >= 128 also torch._int_mm of the stacked planes and w' (int8),
+    a yardstick of the tensor work alone (not the same function: printed,
+    never the library call); and the floor of each shape's noise epilogue,
+    timed on the card by `td_vmm_noise_probe`."""
     import torch
     from repro_torch.kernels.td_vmm import td_vmm as tv
     from repro_torch.tdsim.policy import solved_td_policy
 
     pol = solved_td_policy(4, 4, 576, None)
+    solved = (pol.sigma_chain, float(pol.tdc_q))
+    coarse = solved_td_policy(4, 4, 576, 2.0)      # q = 2 with noise
     gen = torch.Generator(device="cuda").manual_seed(0)
     seed = torch.tensor([33350994], dtype=torch.int64, device="cuda")
-    cases = [  # (label, M, K, N): prefill and decode shapes of qwen3-8b
-        ("prefill mlp.wi", 512, 4096, 12288),
-        ("prefill mlp.wo", 512, 12288, 4096),
-        ("train mlp.wi", 128, 4096, 12288),      # one microbatch of 128
-        ("train lm_head", 128, 4096, 151936),
-        ("decode attn.wk", 4, 4096, 1024),
-        ("decode mlp.wi", 4, 4096, 12288),
-        ("decode lm_head", 4, 4096, 151936),
-    ]
-    main = None
     max_err = 0.0                   # over every case, shape and policy
-    for label, m, k, n in cases:
-        x = torch.randint(-8, 8, (m, k), generator=gen, device="cuda",
-                          dtype=torch.int32)
-        w = torch.randint(-8, 8, (k, n), generator=gen, device="cuda",
-                          dtype=torch.int32)
-        kw = dict(bits_a=4, bits_w=4, n_chain=576)
-        for sigma, q in ((0.0, 1.0), (0.0, 3.0), (pol.sigma_chain,
-                                                 float(pol.tdc_q))):
-            par = torch.tensor([sigma, q], dtype=torch.float32, device="cuda")
-            got = tv.td_vmm(x, w, par, seed, **kw)
-            want = tv.td_vmm_plain(x, w, par, seed, **kw)
-            torch.cuda.synchronize()
-            diff = (got - want).abs()
-            err = float(diff.max())
-            max_err = max(max_err, err)
-            frac = float((diff != 0).float().mean())
-            print(f"[td_vmm] {label} M={m} K={k} N={n} sigma={sigma:.4f} "
-                  f"q={q:g}: max |kernel - plain| {err:g}, differing "
-                  f"{frac:.2e}")
-            if sigma == 0.0 and err != 0.0:
-                fail(f"td_vmm not bit-exact at sigma=0 ({label}, q={q})")
-            # with noise: a z within ulps of a rounding boundary may flip one
-            # plane's TDC step (q * 2^b); allow 1e-4 of the entries
-            if sigma != 0.0 and (frac > 1e-4 or bool(
-                    torch.any(torch.remainder(got - want, q) != 0))):
-                fail(f"td_vmm noisy outputs disagree ({label})")
-            del want
-        par = torch.tensor([pol.sigma_chain, float(pol.tdc_q)],
-                           dtype=torch.float32, device="cuda")
+    for m, k, n, n_chain in TD_VMM_RAGGED:
+        for bits_a, bits_w in TD_VMM_BITS:
+            x, w = _codes(gen, (m, k), bits_a), _codes(gen, (k, n), bits_w)
+            kw = dict(bits_a=bits_a, bits_w=bits_w, n_chain=n_chain)
+            max_err = max(max_err, _td_vmm_check(
+                tv, "ragged", x, w, seed, kw,
+                [solved, (coarse.sigma_chain, float(coarse.tdc_q))]))
+    noise_floor = td_vmm_noise_probe()
+    print(f"[td_vmm] card before timing: {gpu_state()}")
+    timed = {}
+    for label, m, k, n, cold, bits_a, bits_w in TD_VMM_TIMED:
+        kw = dict(bits_a=bits_a, bits_w=bits_w, n_chain=576)
+        x, w = _codes(gen, (m, k), bits_a), _codes(gen, (k, n), bits_w)
+        max_err = max(max_err, _td_vmm_check(tv, label, x, w, seed, kw,
+                                             [solved]))
+        par = torch.tensor(solved, dtype=torch.float32, device="cuda")
+        par0 = torch.tensor([0.0, solved[1]], dtype=torch.float32,
+                            device="cuda")
+        big = m * n > 10**7
         t = in_turns("td_vmm", label, {
             "plain": lambda: tv.td_vmm_plain(x, w, par, seed, **kw),
-            "kernel": lambda: tv.td_vmm(x, w, par, seed, **kw)},
-            {"plain": 2, "kernel": 5})
-        k_pad = -(-k // 576) * 576
+            "kernel": lambda: tv.td_vmm(x, w, par, seed, **kw),
+            "sigma0": lambda: tv.td_vmm(x, w, par0, seed, **kw)},
+            {"plain": 1 if big else 2, "kernel": 5 if big else 20,
+             "sigma0": 5 if big else 20}, cold=cold)
+        plan = tv.td_vmm_plan(m, k, n, 576, bits_a)
+        # the operations of the live contraction: the kernel walks k
+        # positions, never the padding of the last segment
         b_ms, b_by = bound_ms(4 * (m * k + k * n + m * n),
-                              2 * m * k_pad * n * 4, "int8")
-        print(f"[td_vmm] {label}: kernel {t['kernel_ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        if main is None:
-            main = dict(shape=f"{label} M={m} K={k} N={n}",
-                        ms=t["kernel_ms"], plain_ms=t["plain_ms"],
-                        bound_ms=b_ms, bound_by=b_by)
+                              2 * m * k * n * bits_a, "int8")
+        outputs = bits_a * plan.n_seg * m * n       # noisy plane outputs
+        floor, probe_ms, probe_base_ms = noise_floor(outputs, solved[0])
+        row = dict(ms=t["kernel_ms"], plain_ms=t["plain_ms"],
+                   sigma0_ms=t["sigma0_ms"], bound_ms=b_ms, bound_by=b_by,
+                   noise_floor_ms=floor, route=plan.route,
+                   shape=f"{label} M={m} K={k} N={n} bits "
+                         f"{bits_a}/{bits_w}")
+        if m >= 128:
+            ox, ow = 2 ** (bits_a - 1), 2 ** (bits_w - 1)
+            a8 = torch.cat([((x + ox) >> b) & 1 for b in range(bits_a)]).to(
+                torch.int8)
+            w8 = (w + ow).to(torch.int8)
+            try:
+                row["int_mm_ms"] = statistics.median(device_ms(
+                    lambda: torch._int_mm(a8, w8), 5)[0])
+            except RuntimeError as e:
+                print(f"[td_vmm] torch._int_mm refused: "
+                      f"{str(e).splitlines()[0][:100]}")
+            del a8, w8
+        print(f"[td_vmm] {label} ({plan.route} route): kernel "
+              f"{t['kernel_ms']:.4f} ms (sigma 0: {t['sigma0_ms']:.4f}), "
+              f"plain {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"kernel at {b_ms / t['kernel_ms']:.1%} of it; noise epilogue "
+              f"floor {floor:.4f} ms (probe over {outputs} noisy plane "
+              f"outputs: {probe_ms:.4f} ms with z, {probe_base_ms:.4f} "
+              f"without)"
+              + (f"; torch._int_mm of the stacked planes and w' (tensor "
+                 f"work alone) {row['int_mm_ms']:.4f} ms"
+                 if "int_mm_ms" in row else ""))
+        timed[label] = row
         del x, w
+        torch.cuda.empty_cache()
+    print(f"[td_vmm] card after timing: {gpu_state()}")
+    main = timed["prefill mlp.wi"]
     rows.append(dict(name="td_vmm", route="cuda",
                      source="src/repro_torch/csrc/td_vmm.cu",
                      replaces="src/repro/kernels/td_vmm/td_vmm.py:110",
-                     max_abs_err=max_err, library_ms=None, **main))
+                     max_abs_err=max_err, library_ms=None, ms=main["ms"],
+                     plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                     bound_by=main["bound_by"], shape=main["shape"],
+                     timed=timed))
 
 
 def _sdpa(q, k, v, causal):
