@@ -8,11 +8,15 @@
 2. prints the card's name and power limit (nvidia-smi) and the floor of
    the device-time yardstick (an event pair around an empty kernel);
 3. runs the port's smoke model on the card and on the CPU (plain versions
-   of the kernels): serving (tokens and logits) and two train steps
-   (losses, gradient norms, parameters);
+   of the kernels): serving (tokens and logits), the continuous-batching
+   engine on ragged requests at capacities 3 and 9 (tokens, steps and
+   completion order) and two train steps (losses, gradient norms,
+   parameters);
 4. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (qwen3-8b at full width: serve batch 4, prompt 128;
-   train microbatch 1 x 128 and every weight of the 4-layer model), at
+   the engine's admissions over its prompt bucket and its decode steps at
+   its capacity, with ragged per-row lengths; train microbatch 1 x 128
+   and every weight of the 4-layer model), at
    the attention kernels' edge cases (query tiles, split chunks, masked
    rows) and at one long shape each (flash_attn at train_4k's microbatch,
    Sq 4096; decode_gqa at decode_32k's length, S 32768), holding the
@@ -24,16 +28,24 @@
    time;
 5. serves full-width qwen3-8b in td mode (random seeded weights, bf16,
    36 layers, batch 4, prompt 128, 16 new tokens) through
-   `repro_torch.launch.serve.run`, then trains full-width qwen3-8b cut to
-   4 layers (the memory reason is in PERF.md §4) through
-   `repro_torch.launch.train.run`: 3 steps in td mode, then 1 in quant
-   mode, global batch 8 x 128 in 8 microbatches.  Every launch counter is
-   set to 0 just before each run and read just after; each kernel of the
-   path must have run exactly as often as the path calls it, the tokens
-   must be in range and the losses finite;
-6. profiles a shorter serve run and a td train step under torch.profiler
-   and prints where the device time goes, attention's device time per
-   launch included; a profiler failure fails the run.
+   `repro_torch.launch.serve.run`; serves it again through the
+   continuous-batching engine (`launch.scheduler`) on two traffics: 16
+   ragged requests of 64-128 prompt and 8-16 new tokens into 8 slots of
+   192 tokens, and the reference's serving gate (`bench_serving`: 256
+   streams of 8-16 prompt and 16-32 new tokens into 16 slots of 64
+   tokens), each also in lockstep (``continuous=False``) for its step
+   count and tokens/s; then trains full-width qwen3-8b cut to 4 layers (the memory
+   reason is in PERF.md §4) through `repro_torch.launch.train.run`: 3
+   steps in td mode, then 1 in quant mode, global batch 8 x 128 in 8
+   microbatches.  Every launch counter is set to 0 just before each run
+   and read just after; each kernel of the path must have run exactly as
+   often as the path calls it, the tokens must be in range, every
+   request finished, slot recycling must save decode steps on the
+   serving gate's traffic, and the losses must be finite;
+6. profiles a shorter serve run, a short scheduler run (4 requests,
+   capacity 4) and a td train step under torch.profiler and prints where
+   the device time goes, attention's device time per launch included; a
+   profiler failure fails the run.
 
 Prints one JSON line describing every kernel, then, last, the result line
 `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result, on
@@ -61,6 +73,19 @@ KERNEL_NAMES = {"td_vmm": ("td_vmm_block", "td_vmm_split"),
                 "flash_attn": ("flash_wg", "flash_attn_kernel"),
                 "decode_gqa": ("decode_split",)}
 TRAIN = dict(layers=4, seq=128, batch=8, td_steps=3, quant_steps=1)
+# the continuous-batching engine, two traffics.  "scheduler": 16 ragged
+# requests (prompts 64-128, 8-16 new tokens) into 8 slots of 144 tokens,
+# rounded to 192 by the KV plan; prompts as long as the fixed-batch serve's.
+# "scheduler_bench": the reference's serving gate
+# (benchmarks/bench_serving.py:44, its request seed 7), 256 ragged streams
+# (prompts 8-16, 16-32 new tokens) into 16 slots of 48 tokens, rounded to 64.
+SCHED = dict(capacity=8, s_cache=144, kv_block=64, requests=16,
+             prompt_len=128, gen=16, seed=1)
+BENCH_SCHED = dict(capacity=16, s_cache=48, kv_block=64, requests=256,
+                   prompt_len=16, gen=32, seed=7)
+SCHED_PATHS = {"scheduler": SCHED, "scheduler_bench": BENCH_SCHED}
+SMALL_SCHED = dict(capacities=(3, 9), s_cache=14, requests=12, prompt_len=8,
+                   gen=6)
 
 
 def fail(msg: str) -> None:
@@ -341,6 +366,44 @@ def phase_small_reference():
           f"{same}, max |logit diff| {err:.3e} (tolerance 1e-3)")
     if not same or not err <= 1e-3:
         fail("smoke model on the card disagrees with the CPU run")
+    small_engines(arch, pol, params)
+
+
+def small_engines(arch, pol, params):
+    """The continuous-batching engine on the smoke model of
+    `phase_small_reference` (policy ``pol``), ragged requests, the card
+    against the CPU: steps, completion order and every generated token
+    must be equal.  At capacity 9 decode takes td_vmm's block route
+    (M > 8), at 3 its split route."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.scheduler import ContinuousBatchingEngine
+    from repro_torch.models import common
+    solve = common.resolve_arch_policy
+    cfg = arch.model
+    for capacity in SMALL_SCHED["capacities"]:
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            common.resolve_arch_policy = lambda a: pol
+            try:
+                eng = ContinuousBatchingEngine(
+                    arch, capacity=capacity, s_cache=SMALL_SCHED["s_cache"],
+                    kv_block=8, params=_to(params, dev), device=dev)
+            finally:
+                common.resolve_arch_policy = solve
+            eng.run(serve.synthetic_requests(
+                SMALL_SCHED["requests"], SMALL_SCHED["prompt_len"],
+                SMALL_SCHED["gen"], cfg.vocab, seed=3))
+            runs[dev] = (eng.steps_run, list(eng.done),
+                         {r: q.generated for r, q in eng.done.items()})
+        cpu, card = runs["cpu"], runs["cuda"]
+        same = card == cpu
+        print(f"[small] smoke engine td sigma=0 f32, capacity {capacity}, "
+              f"{SMALL_SCHED['requests']} ragged requests, card vs CPU: "
+              f"steps {card[0]} vs {cpu[0]}, completion order and every "
+              f"generated token equal: {same}")
+        if not same:
+            fail(f"smoke engine at capacity {capacity} on the card disagrees "
+                 "with the CPU run")
 
 
 def _to(tree, dev):
@@ -429,7 +492,29 @@ TD_VMM_TIMED = [
     ("decode mlp.wi", 4, 4096, 12288, True, 4, 4),
     ("decode lm_head", 4, 4096, 151936, True, 4, 4),
     ("prefill mlp.wi, bits 2/3", 512, 4096, 12288, False, 2, 3),
+    ("scheduler admission mlp.wi", 192, 4096, 12288, False, 4, 4),
+    ("scheduler decode mlp.wi", 8, 4096, 12288, True, 4, 4),
+    ("scheduler_bench decode mlp.wi", 16, 4096, 12288, True, 4, 4),
 ]
+
+
+def slot_len(conf: dict) -> int:
+    """The engine's slot (and prompt bucket) length: ``s_cache`` rounded up
+    to KV blocks, as `roofline.model.plan_kv_cache` rounds it."""
+    return -(-conf["s_cache"] // conf["kv_block"]) * conf["kv_block"]
+
+
+# td_vmm's other shapes on the engine's paths, checked (not timed): every
+# dense's (K, N) besides mlp.wi (timed above) at the admission's M (the
+# prompt bucket) and the decode step's M (the capacity), for both traffics
+TD_VMM_SCHED = [(f"{path} {step} {name}", m, k, n)
+                for path, conf in SCHED_PATHS.items()
+                for step, m in (("admission", slot_len(conf)),
+                                ("decode", conf["capacity"]))
+                for name, k, n in (("attn.wq", 4096, 4096),
+                                   ("attn.wk", 4096, 1024),
+                                   ("mlp.wo", 12288, 4096),
+                                   ("lm_head", 4096, 151936))]
 # ragged shapes through both routes, (M, K, N, n_chain), at these widths
 TD_VMM_RAGGED = [(5, 100, 70, 16), (9, 161, 130, 48), (130, 1200, 200, 576)]
 TD_VMM_BITS = [(4, 4), (8, 8), (2, 3), (1, 4)]
@@ -545,7 +630,8 @@ def _td_vmm_check(tv, label, x, w, seed, kw, noisy) -> float:
 
 def phase_td_vmm(rows: list):
     """td_vmm against its plain version on the card through both routes:
-    the ragged shapes at four bit widths, then the main paths' shapes;
+    the ragged shapes at four bit widths, the continuous-batching engine's
+    shapes (`TD_VMM_SCHED`), then the main paths' shapes;
     then device time in turns (plain, kernel at the solved sigma, kernel at
     sigma 0, kernel, plain) at the main paths' shapes, decode with a cold
     L2; at M >= 128 also torch._int_mm of the stacked planes and w' (int8),
@@ -569,6 +655,13 @@ def phase_td_vmm(rows: list):
             max_err = max(max_err, _td_vmm_check(
                 tv, "ragged", x, w, seed, kw,
                 [solved, (coarse.sigma_chain, float(coarse.tdc_q))]))
+    for label, m, k, n in TD_VMM_SCHED:
+        kw = dict(bits_a=4, bits_w=4, n_chain=576)
+        x, w = _codes(gen, (m, k), 4), _codes(gen, (k, n), 4)
+        max_err = max(max_err, _td_vmm_check(tv, label, x, w, seed, kw,
+                                             [solved]))
+        del x, w
+    torch.cuda.empty_cache()
     noise_floor = td_vmm_noise_probe()
     print(f"[td_vmm] card before timing: {gpu_state()}")
     timed = {}
@@ -702,7 +795,8 @@ def phase_flash(rows: list):
     """flash_attn against its plain version on the card (bf16, tolerance
     2e-2): the serve prefill and train microbatch shapes, ragged kv_len with
     a fully masked row and q_offset, non-causal, Sq around the query tiles,
-    g from 1 to 16, and train_4k's microbatch; then device time in turns
+    g from 1 to 16, train_4k's microbatch and the engine's admissions (B 1
+    over the prompt bucket, both traffics); then device time in turns
     with SDPA at the serve prefill, the train microbatch and train_4k."""
     import torch
     from repro_torch.kernels.flash_attn import flash_attn as fa
@@ -721,6 +815,9 @@ def phase_flash(rows: list):
         checks.append((f"g {hq // 8}", 2, 40, 48, hq, 8, [48, 33], 3, True))
     checks.append(("train_4k microbatch", 1, 4096, 4096, 32, 8, [4096], 0,
                    True))
+    for path, conf in SCHED_PATHS.items():   # the engine's bucketed prefill
+        n = slot_len(conf)
+        checks.append((f"{path} admission", 1, n, n, 32, 8, [n], 0, True))
     max_err = 0.0
     for label, b, sq, skv, hq, hkv, lens, off, causal in checks:
         d = 128
@@ -793,20 +890,66 @@ def phase_flash(rows: list):
                      shape="prefill " + main["shape"], timed=timed))
 
 
+def _decode_check(dg, label, q, k, v, lens, chunk) -> float:
+    """decode_gqa at lengths ``lens`` against its plain version and the
+    plain split version (bf16, tolerance 2e-2, see `_cmp`), its split
+    partials against the plain ones (relative 1e-4), length-0 rows exactly
+    0.  Returns max |kernel - plain|."""
+    import torch
+    lt = _i32(lens)
+    got = dg.decode_gqa(q, k, v, lt)
+    want = dg.decode_gqa_plain(q, k, v, lt)
+    sp = dg.decode_gqa_split_plain(q, k, v, lt, chunk)
+    part = dg.decode_gqa_partials(q, k, v, lt)
+    want_p = dg.split_partials_plain(q, k, v, lt, chunk)
+    torch.cuda.synchronize()
+    err, frac, ulp = _cmp(got, want)
+    err_s, frac_s, ulp_s = _cmp(got, sp)
+    err_p = max(_partials_err(x, y) for x, y in zip(part, want_p))
+    zero = all(not bool(got[i].any()) for i, n in enumerate(lens) if n == 0)
+    print(f"[decode_gqa] {label} lengths {lens}: max |kernel - plain| "
+          f"{err:g}, in bf16 ulps {ulp:.3f}, differing {frac:.4f}, length-0 "
+          f"rows exactly 0: {zero}; vs the plain split version {err_s:g}, "
+          f"in bf16 ulps {ulp_s:.3f}, differing {frac_s:.4f}; partials (m, "
+          f"l, acc) max rel err {err_p:.2e}")
+    if not (_close(err, frac, ulp) and _close(err_s, frac_s, ulp_s)
+            and zero and err_p <= 1e-4):
+        fail(f"decode_gqa disagrees with its plain version ({label}, "
+             f"lengths {lens})")
+    return err
+
+
 def phase_decode(rows: list):
     """decode_gqa against its plain version on the card (bf16, tolerance
     2e-2): the decode shape (B 4, S 144), lengths 0, 1, around the split
-    chunk, S and past S, and decode_32k's length (B 4, S 32768); the split
-    partials and their combine against the plain split version; then
-    device time in turns with SDPA, cold L2 (decode streams the whole model
-    between two uses of a layer's cache)."""
+    chunk, S and past S, and decode_32k's length (B 4, S 32768); the
+    continuous-batching engine's decode steps (B = capacity, S = its slot)
+    at ragged per-row lengths, free slots at S (the attention clamps a free
+    slot's length there) and lengths past S; the split partials and their
+    combine against the plain split version; then device time in turns
+    with SDPA, cold L2 (decode streams the whole model between two uses of
+    a layer's cache)."""
     import torch
     from repro_torch.kernels.decode_gqa import decode_gqa as dg
     gen = torch.Generator(device="cuda").manual_seed(2)
-    b, hq, hkv, d = 4, 32, 8, 128
+    hq, hkv, d = 32, 8, 128
+    max_err = 0.0
+    for path, conf in SCHED_PATHS.items():
+        b, s = conf["capacity"], slot_len(conf)
+        q = _randn(gen, (b, hq, d))
+        k = _randn(gen, (b, s, hkv, d))
+        v = _randn(gen, (b, s, hkv, d))
+        _, chunk = dg.split_plan(s, b, hkv)
+        edges = [0, 1, chunk - 1, chunk, chunk + 1, s - 1, s, s + 9]
+        for lens in ([(37 * i) % s + 1 for i in range(b)],
+                     [s] * b,
+                     [edges[i % len(edges)] for i in range(b)]):
+            max_err = max(max_err, _decode_check(
+                dg, f"{path} decode B={b} S={s}", q, k, v, lens, chunk))
+        del q, k, v
+    b = 4
     s_main = SERVE["prompt_len"] + SERVE["gen"]
     length = SERVE["prompt_len"] + SERVE["gen"] // 2
-    max_err = 0.0
     timed = {}
     for label, s in (("decode", s_main), ("decode_32k", 32768)):
         q = _randn(gen, (b, hq, d))
@@ -819,30 +962,8 @@ def phase_decode(rows: list):
         for lens in ([full] * b, [0, 1, s // 2, s + 9],
                      [chunk - 1, chunk, chunk + 1, s],
                      [0, 2 * chunk - 1, 2 * chunk + 1, s - 1]):
-            lt = _i32(lens)
-            got = dg.decode_gqa(q, k, v, lt)
-            want = dg.decode_gqa_plain(q, k, v, lt)
-            sp = dg.decode_gqa_split_plain(q, k, v, lt, chunk)
-            part = dg.decode_gqa_partials(q, k, v, lt)
-            want_p = dg.split_partials_plain(q, k, v, lt, chunk)
-            torch.cuda.synchronize()
-            err, frac, ulp = _cmp(got, want)
-            err_s, frac_s, ulp_s = _cmp(got, sp)
-            err_p = max(_partials_err(x, y) for x, y in zip(part, want_p))
-            zero = all(not bool(got[i].any()) for i, n in enumerate(lens)
-                       if n == 0)
-            print(f"[decode_gqa] {label} lengths {lens}: max |kernel - "
-                  f"plain| {err:g}, in bf16 ulps {ulp:.3f}, differing "
-                  f"{frac:.4f}, length-0 rows exactly 0: {zero}; vs the "
-                  f"plain split version {err_s:g}, in bf16 ulps "
-                  f"{ulp_s:.3f}, differing {frac_s:.4f}; partials (m, l, "
-                  f"acc) max rel err {err_p:.2e}")
-            ok = _close(err, frac, ulp) and _close(err_s, frac_s, ulp_s) \
-                and zero and err_p <= 1e-4
-            if not ok:
-                fail(f"decode_gqa disagrees with its plain version "
-                     f"({label}, lengths {lens})")
-            max_err = max(max_err, err)
+            max_err = max(max_err, _decode_check(dg, label, q, k, v, lens,
+                                                 chunk))
         lens = _i32([full] * b)
         qt = q[:, :, None].contiguous()
         kt = k[:, :full].transpose(1, 2).contiguous()
@@ -1043,6 +1164,114 @@ def phase_serve(launches: dict):
     launches["serve"] = counts
 
 
+def serve_requests(cfg, conf: dict):
+    """The traffic ``conf``'s requests (`serve.synthetic_requests`)."""
+    from repro_torch.launch import serve
+    return serve.synthetic_requests(conf["requests"], conf["prompt_len"],
+                                    conf["gen"], cfg.vocab, seed=conf["seed"])
+
+
+def _sched_run(arch, conf: dict, params, continuous: bool, mods: dict):
+    """One run of `ContinuousBatchingEngine` on the traffic ``conf``, after
+    one warm-up request; every launch counter is set to 0 just before
+    `run()` and read just after.  Returns (engine, summary, counts, peak
+    GiB)."""
+    import torch
+    from repro_torch.launch.scheduler import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(arch, capacity=conf["capacity"],
+                                   s_cache=conf["s_cache"],
+                                   kv_block=conf["kv_block"], seed=0,
+                                   params=params, continuous=continuous)
+    eng.warmup()
+    reqs = serve_requests(arch.model, conf)
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods.values():
+        m.launches = 0
+    out = eng.run(reqs)
+    torch.cuda.synchronize()
+    counts = {n: m.launches for n, m in mods.items()}
+    return eng, out, counts, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _sched_report(path: str, mode: str, eng, out: dict, peak: float):
+    """Prints a run's numbers: the summary's, and the medians of the
+    engine's own admission and decode-step times (host clock, each ending
+    at the step's device sync)."""
+    print(f"[{path}] {mode}: capacity {eng.capacity}, slot {eng.s_cache} "
+          f"tokens, prompt bucket {eng.prompt_pad}; {out['requests']} "
+          f"requests, {out['new_tokens']} new tokens in "
+          f"{out['wall_s'] * 1e3:.1f} ms: {out['tokens_per_s']:.2f} "
+          f"tokens/s, {eng.steps_run} decode steps, {len(eng.admit_ms)} "
+          f"admissions; per-request ms/token p50 "
+          f"{out['ms_per_token_p50']:.1f}, p99 {out['ms_per_token_p99']:.1f};"
+          f" peak memory {peak:.1f} GiB")
+    print(f"[{path}] {mode}: admission (prefill + insert, to the device "
+          f"sync) median {statistics.median(eng.admit_ms):.1f} ms, min "
+          f"{min(eng.admit_ms):.1f}, max {max(eng.admit_ms):.1f}; decode "
+          f"step median {statistics.median(eng.decode_ms):.1f} ms, min "
+          f"{min(eng.decode_ms):.1f}, max {max(eng.decode_ms):.1f}")
+
+
+def phase_scheduler(launches: dict):
+    """The continuous-batching path: full-width qwen3-8b in td mode (bf16,
+    36 layers, seeded weights) behind `ContinuousBatchingEngine`, on the
+    two traffics of `SCHED_PATHS`, each also through the lockstep baseline
+    (``continuous=False``) on the same requests and weights: on
+    "scheduler" after the continuous run, on "scheduler_bench" before it.
+    Both modes are timed alike, by the engine's own telemetry.  The
+    continuous run of each traffic is the path whose launches count: with
+    A admissions and D decode steps td_vmm runs (7 L + 1)(A + D) times,
+    flash_attn L A, decode_gqa L D."""
+    import repro_torch.configs as cfgs
+    from repro_torch.launch import td_cli
+
+    arch = td_cli.apply_td_args(cfgs.get("qwen3-8b"), "td")
+    cfg = arch.model
+    L = cfg.n_layers
+    mods = kernel_modules()
+    params = None                  # the first engine's seeded init, shared
+    for path, conf in SCHED_PATHS.items():
+        order = (True, False) if path == "scheduler" else (False, True)
+        runs = {}
+        for continuous in order:
+            eng, out, counts, peak = _sched_run(arch, conf, params,
+                                                continuous, mods)
+            params = eng.params
+            mode = "continuous" if continuous else "lockstep"
+            _sched_report(path, mode, eng, out, peak)
+            runs[mode] = (eng, out, counts)
+        eng, out, counts = runs["continuous"]
+        a, d = len(eng.admit_ms), eng.steps_run
+        check_launches(path, counts, {
+            "td_vmm": (7 * L + 1) * (a + d), "flash_attn": L * a,
+            "decode_gqa": L * d, "lsq_quant": 0})
+        toks = [t for r in eng.done.values() for t in r.generated]
+        want = {r.rid: r.max_new_tokens for r in serve_requests(cfg, conf)}
+        if out["requests"] != conf["requests"] or a != conf["requests"] or \
+                any(len(eng.done[r].generated) != n for r, n in want.items()):
+            fail(f"{path}: finished {out['requests']} of {conf['requests']} "
+                 f"requests in {a} admissions, or cut one short")
+        if min(toks) < 0 or max(toks) >= cfg.vocab:
+            fail(f"{path}: tokens out of range [{min(toks)}, {max(toks)}]")
+        print(f"[{path}] completion order {list(eng.done)[:32]}; request "
+              f"0: {eng.done[0].generated}")
+        f_eng, f_out, _ = runs["lockstep"]
+        print(f"[{path}] lockstep baseline (continuous=False), same requests "
+              f"and weights: {f_out['steps']} decode steps against {d} "
+              f"continuous, {f_out['tokens_per_s']:.2f} tokens/s against "
+              f"{out['tokens_per_s']:.2f}")
+        if f_out["new_tokens"] != out["new_tokens"] or f_out["steps"] < d:
+            fail(f"{path}: lockstep baseline gave other tokens, or fewer "
+                 "steps than continuous batching")
+        if path == "scheduler_bench" and not d < f_out["steps"]:
+            # the reference's serving gate: slot recycling saves steps
+            fail(f"{path}: continuous batching ran {d} decode steps, "
+                 f"lockstep {f_out['steps']}")
+        launches[path] = counts
+        del runs, eng, f_eng
+
+
 def train_arch(mode: str):
     """qwen3-8b at its published widths and train settings, cut to
     TRAIN["layers"] layers, in ``--td mode``."""
@@ -1129,7 +1358,7 @@ def _span_report(prof, span: str, which: slice, side: str = "host") -> None:
     ranges = [(e.time_range.start, e.time_range.end) for e in events
               if e.name == span and e.device_type == dt][which]
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.name.startswith(("serve.", "train."))]
+               and not e.name.startswith(("serve.", "train.", "sched."))]
     wall = sum(b - a for a, b in ranges)
     by_name = collections.Counter()
     count = collections.Counter()
@@ -1170,16 +1399,20 @@ def _span_report(prof, span: str, which: slice, side: str = "host") -> None:
 
 
 def phase_profile():
-    """Where the time goes: a shorter serve run (gen 4) and a 2-step td
-    train run under torch.profiler, each kernel assigned by its device
-    timestamp to the "serve.prefill" / "serve.decode" / "train.step" span
-    that ran it, and the AdamW update to "train.optimizer" (the train
-    reports read the second, steady step).  A
-    profiler failure, or a trace without device time, fails the run."""
+    """Where the time goes: a shorter serve run (gen 4), a scheduler run (4
+    requests, capacity 4, after a warm-up request) and a 2-step td train
+    run under torch.profiler, each kernel assigned by its device timestamp
+    to the "serve.prefill" / "serve.decode" / "sched.prefill" /
+    "sched.decode" / "train.step" span that ran it, and the engine's
+    inserts and the AdamW update to "sched.insert" and "train.optimizer",
+    read from their device-side ranges (the train reports read the
+    second, steady step).  A profiler failure, or a trace without device
+    time, fails the run."""
     import torch
     import repro_torch.configs as cfgs
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.launch import serve, td_cli, train
+    from repro_torch.launch.scheduler import ContinuousBatchingEngine
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1189,6 +1422,21 @@ def phase_profile():
     for span in ("serve.prefill", "serve.decode"):
         _span_report(prof, span, slice(None))
     del prof
+    torch.cuda.empty_cache()
+    eng = ContinuousBatchingEngine(arch, capacity=4,
+                                   s_cache=SCHED["s_cache"],
+                                   kv_block=SCHED["kv_block"], seed=0)
+    eng.warmup()
+    reqs = serve.synthetic_requests(4, SCHED["prompt_len"], 4,
+                                    arch.model.vocab, seed=SCHED["seed"])
+    with profile(activities=acts) as prof:
+        eng.run(reqs)
+    print(f"[profile] scheduler: 4 requests, capacity 4, "
+          f"{eng.steps_run} decode steps")
+    _span_report(prof, "sched.prefill", slice(None))
+    _span_report(prof, "sched.insert", slice(None), side="device")
+    _span_report(prof, "sched.decode", slice(None))
+    del prof, eng
     torch.cuda.empty_cache()
     shape = ShapeCfg("cli", TRAIN["seq"], TRAIN["batch"], "train")
     with profile(activities=acts) as prof:
@@ -1221,7 +1469,7 @@ def main() -> None:
             "launches_by_path", "timed")
     flush_l2(release=True)
     launches: dict = {}
-    for phase in (phase_serve, phase_train):
+    for phase in (phase_serve, phase_scheduler, phase_train):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         phase(launches)

@@ -1,14 +1,21 @@
 """Serving entry point of the port: batched prefill + greedy decode over a KV
-cache (port of the fixed-batch path of `repro/launch/serve.py`).
+cache, and the continuous-batching scheduler front end (port of
+`repro/launch/serve.py`).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --td td --batch 4 --prompt-len 128 --gen 16
 
-runs on CUDA (pass ``--device cpu`` with ``--smoke`` for a CPU run).
+    # ragged concurrent streams through the slot-recycling scheduler
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+        --td td --scheduler --streams 16 --capacity 8 --prompt-len 128 \
+        --gen 16
+
+run on CUDA (pass ``--device cpu`` with ``--smoke`` for a CPU run).
 Parameters come from the port's seeded init, stored in the compute dtype;
-prompts from ``numpy.random.default_rng(seed)``, so a test can feed the
-same tokens to both packages.  The continuous-batching scheduler, drift
-adaptation and the energy meter are not ported yet: their flags raise.
+prompts from ``numpy.random.default_rng``, so a test can feed the same
+tokens to both packages.  Drift adaptation (``--adapt``, ``--trace``) and
+the energy meter are not ported yet: their flags raise, and no J/token is
+printed.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from repro_torch import device as device_mod
 from repro_torch.configs.base import ShapeCfg
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch import td_cli
+from repro_torch.launch.scheduler import ContinuousBatchingEngine, Request
 from repro_torch.models import common, get_api
 
 
@@ -89,8 +97,48 @@ def run(arch, batch: int, prompt_len: int, gen: int, seed: int = 0,
     return gen_ids
 
 
-_NOT_PORTED = ("scheduler", "adapt", "trace", "td_per_layer", "td_attn",
-               "scenario", "corner")
+def synthetic_requests(n: int, prompt_len: int, gen: int,
+                       vocab: int, seed: int = 0) -> list[Request]:
+    """Ragged synthetic streams: prompt and generation lengths each vary
+    uniformly in [len/2, len] (the reference's numpy stream)."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        plen = int(rng.integers(max(1, prompt_len // 2), prompt_len + 1))
+        glen = int(rng.integers(max(1, gen // 2), gen + 1))
+        reqs.append(Request(
+            rid=i, prompt=rng.integers(3, vocab, size=plen).astype(np.int32),
+            max_new_tokens=glen))
+    return reqs
+
+
+def run_scheduler(arch, streams: int, prompt_len: int, gen: int,
+                  capacity: int, seed: int = 0, device=None) -> dict:
+    """Continuous-batching serve: ragged streams through the scheduler.
+    Returns the engine's summary."""
+    eng = ContinuousBatchingEngine(arch, capacity=capacity,
+                                   s_cache=prompt_len + gen, seed=seed,
+                                   device=device)
+    reqs = synthetic_requests(streams, prompt_len, gen, arch.model.vocab,
+                              seed=seed + 1)
+    t_arrival = time.monotonic()
+    for r in reqs:
+        r.arrival_s = t_arrival
+    out = eng.run(reqs)
+    print(f"[serve/sched] {out['requests']} requests, "
+          f"{out['new_tokens']} tokens in {out['wall_s']:.2f} s "
+          f"({out['tokens_per_s']:.1f} tok/s, {out['steps']} steps, "
+          f"capacity {eng.capacity}, slot {eng.s_cache} tok, "
+          f"{eng.device})")
+    print(f"[serve/sched] per-request ms/token "
+          f"p50={out['ms_per_token_p50']:.2f} "
+          f"p99={out['ms_per_token_p99']:.2f}; "
+          f"stragglers={out['stragglers']}")
+    return out
+
+
+_NOT_PORTED = ("adapt", "trace", "td_per_layer", "td_attn", "scenario",
+               "corner")
 
 
 def main(argv=None):
@@ -105,10 +153,14 @@ def main(argv=None):
                     choices=[None, "precise", "quant", "td"])
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu for a smoke run)")
+    ap.add_argument("--scheduler", action="store_true",
+                    help="continuous-batching engine over ragged synthetic "
+                    "streams instead of the fixed-batch driver")
+    ap.add_argument("--streams", type=int, default=16,
+                    help="scheduler mode: number of synthetic streams")
+    ap.add_argument("--capacity", type=int, default=4,
+                    help="scheduler mode: concurrent KV-cache slots")
     # flags of the reference's CLI that this port does not run yet
-    ap.add_argument("--scheduler", action="store_true")
-    ap.add_argument("--streams", type=int, default=None)
-    ap.add_argument("--capacity", type=int, default=None)
     ap.add_argument("--adapt", action="store_true")
     ap.add_argument("--trace", default=None)
     ap.add_argument("--td-per-layer", default=None)
@@ -116,14 +168,17 @@ def main(argv=None):
     ap.add_argument("--scenario", default=None)
     ap.add_argument("--corner", default=None)
     args = ap.parse_args(argv)
-    given = [f for f in _NOT_PORTED + ("streams", "capacity")
-             if getattr(args, f) not in (None, False)]
+    given = [f for f in _NOT_PORTED if getattr(args, f) not in (None, False)]
     if given:
         raise NotImplementedError(
             f"--{given[0].replace('_', '-')} is not yet ported to "
             "repro_torch (ROADMAP.md §1)")
     arch = cfgs.get_smoke(args.arch) if args.smoke else cfgs.get(args.arch)
     arch = td_cli.apply_td_args(arch, args.td)
+    if args.scheduler:
+        return run_scheduler(arch, args.streams, args.prompt_len, args.gen,
+                             args.capacity, seed=args.seed,
+                             device=args.device)
     return run(arch, args.batch, args.prompt_len, args.gen, seed=args.seed,
                device=args.device)
 

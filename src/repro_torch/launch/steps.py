@@ -1,12 +1,13 @@
 """Step builders (port of `repro/launch/steps.py`): train_step
 (microbatched gradient accumulation + AdamW), prefill_step and serve_step
-(one greedy decode step).
+(one greedy decode step), and the continuous-batching engine's
+ragged-prefill and insert steps.
 
 Each step casts the parameters to the compute dtype, as the reference's
 steps do.  `cast_tree` returns a leaf that already has that dtype as is,
 so parameters stored in the compute dtype (`serve.run` stores them in
 bf16 at init) are cast once, at load, instead of on every step.  The
-ragged-prefill, insert and adaptive steps wait for the scheduler.
+drift-adaptive serve step waits for `ft/drift.py` (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -112,3 +113,54 @@ def build_serve_step(arch: ArchConfig, shape: ShapeCfg):
         return next_tok, new_state
 
     return serve_step
+
+
+def build_ragged_prefill_step(arch: ArchConfig, prompt_pad: int):
+    """Bucketed prefill of the continuous-batching serve engine.
+
+    ``prefill_step(params, toks, true_len) -> (next_tok (B, 1), state)``:
+    ``toks`` (B, prompt_pad) right-padded, ``true_len`` the true prompt
+    length (a host int, the same for every row).  The causal mask keeps
+    every row below the true length clean of the pad junk, and the
+    next-token logits are read at the true last position.  The caches are sized
+    at ``prompt_pad``; the insert step copies them into a decode slot."""
+    cfg = arch.model
+    if cfg.family != "decoder":
+        raise ValueError("ragged prefill requires a decoder-family model, "
+                         f"got {cfg.family!r}")
+    pol = common.resolve_arch_policy(arch)
+    api = get_api(cfg)
+    compute_dt = DTYPES[arch.train.compute_dtype]
+
+    def prefill_step(params, toks, true_len):
+        p_c = common.cast_tree(params, compute_dt)
+        logits, state = api["prefill"](p_c, {"tokens": toks}, cfg, pol,
+                                       s_cache=prompt_pad, true_len=true_len)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        return tok, state
+
+    return prefill_step
+
+
+def build_insert_step():
+    """Copy a b = 1 prefilled state into slot ``slot`` of the batched
+    decode state (the slot-recycle primitive of the continuous-batching
+    engine), in place, and return the batched state.
+
+    Each layer's K/V rows are written at the slot, as a prefix when the
+    prefill cache is shorter than the decode cache; the slot's fill index
+    is set to ``length``, the true prompt length, which is what masks the
+    pad junk the bucketed prefill wrote past it.  ``slot`` and ``length``
+    are host ints: nothing here waits for the device."""
+
+    def insert_step(dst_state, src_state, slot: int, length: int):
+        for dst, src in zip(dst_state["layers"], src_state["layers"]):
+            n = src["k"].shape[1]
+            dst["k"][slot, :n] = src["k"][0]
+            dst["v"][slot, :n] = src["v"][0]
+            # fill_ passes the int as a kernel argument; item assignment
+            # would copy it from the host
+            dst["idx"][slot].fill_(length)
+        return dst_state
+
+    return insert_step

@@ -1,5 +1,5 @@
 """Attention: GQA with qk-norm, QKV bias, RoPE and a KV cache (port of
-`repro/models/attention.py`, self-attention with a scalar cache index).
+`repro/models/attention.py`, self-attention).
 
 Every call routes to one of the fused engines, as in the reference:
 single-row causal decode (s == 1 with a cache) to
@@ -7,12 +7,15 @@ single-row causal decode (s == 1 with a cache) to
 `kernels.flash_attn.ops.flash_attention`.  The valid-KV prefix and the
 causal offset ride into the kernels as device tensors.
 
-Caches are ``{"k": (B, S_cache, Hkv, Dh), "v": ..., "idx": int}``.  The
-reference's ``dynamic_update_slice`` returns a new cache; the port writes
-the new keys and values into the cache tensors in place (a cache is never
-read again at its old fill level) and returns the same tensors with the
-advanced index.  The per-row ragged cache of the continuous-batching
-engine, cross-attention and TD attention are not ported yet.
+Caches are ``{"k": (B, S_cache, Hkv, Dh), "v": ..., "idx": ...}``.  The
+fill index is a host int, or with ``per_row_idx`` a (B,) int32 tensor on
+the cache's device: the continuous-batching engine's ragged slots, each
+decoding against its own valid prefix.  The per-row index never leaves the
+device (no host sync inside a step).  The reference's
+``dynamic_update_slice`` returns a new cache; the port writes the new keys
+and values into the cache tensors in place (a cache is never read again at
+its old fill level) and returns the same tensors with the advanced index.
+Cross-attention and TD attention are not ported yet.
 """
 from __future__ import annotations
 
@@ -50,6 +53,10 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelCfg, pol,
     """Self-attention with an optional KV cache; x (B, S, d).  ``key``
     seeds the four denses' noise (``fold_key(key, 0..3)``)."""
     if attn_pols is not None:
+        if cache is not None and isinstance(cache["idx"], torch.Tensor):
+            raise ValueError("TD-quantized attention takes a scalar "
+                             "q_offset; per-slot ragged caches run the "
+                             "precise flash-decode path")
         raise NotImplementedError("TD attention (td_attention) is not yet "
                                   "ported (ROADMAP.md §1, step 9)")
     b, s, _ = x.shape
@@ -64,15 +71,35 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelCfg, pol,
         q = common.rmsnorm(params["q_norm"], q, cfg.rms_eps)
         k = common.rmsnorm(params["k_norm"], k, cfg.rms_eps)
 
+    per_row = cache is not None and isinstance(cache["idx"], torch.Tensor)
+    if per_row and s != 1:
+        raise ValueError("per-slot (vector-idx) caches support single-token "
+                         f"decode steps only, got s={s}")
     q = common.apply_rope(q, positions, cfg.rope_theta)
     if cache is None:
         k_pos = positions
+    elif per_row:
+        # each slot's KV lands at its own fill position (unclamped, as in
+        # the reference: a free slot's index keeps growing)
+        k_pos = cache["idx"][:, None]
     else:
         k_pos = cache["idx"] + torch.arange(s, device=dev)
     k = common.apply_rope(k, k_pos, cfg.rope_theta)
 
     new_cache = None
-    if cache is not None:
+    if per_row:
+        idx = cache["idx"]
+        s_cache = cache["k"].shape[1]
+        # the reference's per-row dynamic_update_slice clamps each start
+        # into [0, S - 1]: a free slot past S rewrites its last position
+        rows = torch.arange(b, device=dev)
+        at = idx.clamp(0, s_cache - 1)
+        cache["k"][rows, at] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, at] = v[:, 0].to(cache["v"].dtype)
+        new_cache = {"k": cache["k"], "v": cache["v"], "idx": idx + 1}
+        kv_len = torch.clamp(idx + 1, max=s_cache)
+        k_use, v_use = cache["k"], cache["v"]
+    elif cache is not None:
         idx = int(cache["idx"])
         s_cache = cache["k"].shape[1]
         # dynamic_update_slice clamps the start so the update fits
@@ -103,9 +130,13 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelCfg, pol,
 
 
 def init_cache(b: int, s_cache: int, cfg: ModelCfg, dtype=torch.bfloat16,
-               device=None) -> dict:
-    """KV cache with a scalar fill index."""
+               device=None, per_row_idx: bool = False) -> dict:
+    """KV cache with a scalar fill index, or with ``per_row_idx`` one (B,)
+    int32 fill index on ``device`` for every batch row (the serving
+    engine's ragged slots)."""
     shape = (b, s_cache, cfg.n_kv_heads, cfg.hd)
+    idx = (torch.zeros((b,), dtype=torch.int32, device=device)
+           if per_row_idx else 0)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "idx": 0}
+            "idx": idx}

@@ -6,8 +6,11 @@
   prefill(params, batch, cfg, pol, s_cache)     -> (last_logits, state)
   decode_step(params, tok, state, cfg, pol)     -> (logits, state)
 
-`state` is {"layers": [...per-layer cache...], "enc_out": None}.  The
-enc-dec family and the energy-meter ledger come later.
+`state` is {"layers": [...per-layer cache...], "enc_out": None}.  With
+``true_len`` the prefill serves a right-padded bucket and returns the
+logits at each row's true last position; a decode step on per-row caches
+(the serving engine's ragged slots) puts each row's query at its own fill
+index.  The enc-dec family and the energy-meter ledger come later.
 """
 from __future__ import annotations
 
@@ -31,19 +34,32 @@ def _dec_train_loss(params, batch, cfg: ModelCfg, pol, key=None,
 
 
 def _dec_prefill(params, batch, cfg: ModelCfg, pol, s_cache: int,
-                 cache_dtype=torch.bfloat16):
+                 cache_dtype=torch.bfloat16, true_len=None):
     b = batch["tokens"].shape[0]
     dev = batch["tokens"].device
     caches = transformer.init_caches(b, s_cache, cfg, cache_dtype, dev)
+    # lm_head runs over every padded row, as in the reference: td_vmm's
+    # noise is hashed over the (M, N) the call is given
     logits, caches, _ = transformer.forward(params, batch, cfg, pol,
                                             caches=caches)
+    if true_len is not None:
+        # bucket-padded prompts (serving engine): causal masking keeps every
+        # row < true_len clean of the pad junk, so the next-token logits
+        # live at the true last prompt position (a host int), not the
+        # padded one
+        return (logits[:, true_len - 1:true_len],
+                {"layers": caches, "enc_out": None})
     return logits[:, -1:], {"layers": caches, "enc_out": None}
 
 
 def _dec_decode(params, tok, state, cfg: ModelCfg, pol):
     caches = state["layers"]
-    pos = torch.full((1,), caches[0]["idx"], dtype=torch.int32,
-                     device=tok.device)
+    idx = caches[0]["idx"]
+    if isinstance(idx, torch.Tensor):
+        # per-slot ragged caches: one query position per row
+        pos = idx[:, None]
+    else:
+        pos = torch.full((1,), idx, dtype=torch.int32, device=tok.device)
     logits, new_caches, _ = transformer.forward(
         params, {"tokens": tok}, cfg, pol, caches=caches, positions=pos)
     return logits[:, -1], {"layers": new_caches, "enc_out": None}

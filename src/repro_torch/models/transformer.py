@@ -121,9 +121,10 @@ def forward(params: dict, batch: dict, cfg: ModelCfg, pol,
 
 
 def init_caches(b: int, s_cache: int, cfg: ModelCfg, dtype=torch.bfloat16,
-                device=None) -> list:
-    """One KV cache per layer."""
+                device=None, per_row_idx: bool = False) -> list:
+    """One KV cache per layer; ``per_row_idx`` builds the serving engine's
+    ragged-slot caches (one fill index per batch row)."""
     _check_supported(cfg)
     dev = device_mod.resolve(device)
-    return [attention.init_cache(b, s_cache, cfg, dtype, dev)
+    return [attention.init_cache(b, s_cache, cfg, dtype, dev, per_row_idx)
             for _ in range(cfg.n_layers)]

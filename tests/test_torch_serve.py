@@ -138,6 +138,6 @@ def test_run_and_cli_on_cpu(capsys):
     torch.testing.assert_close(again, ids)
     assert "[serve] prefill(2x5)" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tserve.main(["--smoke", "--scheduler", "--device", "cpu"])
+        tserve.main(["--smoke", "--scheduler", "--adapt", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tcfgs.get("dbrx-132b")
