@@ -7,6 +7,14 @@
    ptxas's register and spill report;
 2. prints the card's name and power limit (nvidia-smi) and the floor of
    the device-time yardstick (an event pair around an empty kernel);
+   then runs the design-space engine on the card: the golden fixture
+   (`tests/fixtures/design_space_golden.json`) through `sweep_batched`
+   and `design_space.evaluate`, and the dense scenario (414,720 points)
+   at tt, ff and ss on the card and on this host's CPU, integer decisions
+   and winners equal (a float32 tie printed and counted), floats within
+   rtol 1e-4, the sweep timed and its launches profiled, the explorer's
+   memo hits timed; and `solve_td_policy` on the card at the eight rows
+   of `POLICY_ROWS` (the reference's solutions);
 3. runs the port's smoke model on the card and on the CPU (plain versions
    of the kernels): serving (tokens and logits), the continuous-batching
    engine on ragged requests at capacities 3 and 9 (tokens, steps and
@@ -34,7 +42,12 @@
    192 tokens, and the reference's serving gate (`bench_serving`: 256
    streams of 8-16 prompt and 16-32 new tokens into 16 slots of 64
    tokens), each also in lockstep (``continuous=False``) for its step
-   count and tokens/s; then trains full-width qwen3-8b cut to 4 layers (the memory
+   count and tokens/s; serves the first traffic once more with per-layer
+   budgets (exact, 1.0, 2.0 cycled over the layers) at the vdd-opt
+   scenario's ss corner; each path prints J/token in the three domains
+   (the paper's circuit model) and, on the engine, holds the meter's
+   per-request rows to its total and the total to rate x tokens (1e-9);
+   then trains full-width qwen3-8b cut to 4 layers (the memory
    reason is in PERF.md §4) through `repro_torch.launch.train.run`: 3
    steps in td mode, then 1 in quant mode, global batch 8 x 128 in 8
    microbatches.  Every launch counter is set to 0 just before each run
@@ -86,6 +99,25 @@ BENCH_SCHED = dict(capacity=16, s_cache=48, kv_block=64, requests=256,
 SCHED_PATHS = {"scheduler": SCHED, "scheduler_bench": BENCH_SCHED}
 SMALL_SCHED = dict(capacities=(3, 9), s_cache=14, requests=12, prompt_len=8,
                    gen=6)
+# the per-layer scenario run of the engine: SCHED's traffic, the layers'
+# budgets cycling through exact, 1.0 and 2.0, at the vdd-opt scenario's ss
+# corner
+SCENARIO_RUN = dict(per_layer=("exact", "1.0", "2.0"), scenario="vdd-opt",
+                    corner="ss")
+# the reference's solve_td_policy (repro.tdsim.policy) at these keys:
+# (bits_a, bits_w, n_chain, sigma_max) -> (R, sigma_chain, q), at the
+# default supply, input statistics and library (vdd 0.8, m 8, hybrid TDC)
+POLICY_ROWS = {
+    (4, 4, 576, None): (76, 0.16601820290088654, 1),
+    (4, 4, 576, 2.0): (1, 1.9179178476333618, 2),
+    (4, 4, 64, None): (10, 0.1575535237789154, 1),
+    (4, 4, 64, 2.0): (1, 0.6393059492111206, 6),
+    (4, 4, 48, None): (7, 0.16557468473911285, 1),
+    (4, 4, 48, 2.0): (1, 0.5536551475524902, 6),
+    (4, 4, 16, None): (3, 0.1554127037525177, 1),
+    (4, 4, 16, 2.0): (1, 0.3196529746055603, 6),
+}
+GOLDEN = ROOT / "tests" / "fixtures" / "design_space_golden.json"
 
 
 def fail(msg: str) -> None:
@@ -344,7 +376,7 @@ def phase_small_reference():
     results = {}
     # the steps resolve their policy from the arch; sigma = 0 is built here
     solve = common.resolve_arch_policy
-    common.resolve_arch_policy = lambda a: pol
+    common.resolve_arch_policy = lambda a, device=None: pol
     try:
         pre = steps.build_prefill_step(arch, shape)
         srv = steps.build_serve_step(arch, shape)
@@ -383,7 +415,7 @@ def small_engines(arch, pol, params):
     for capacity in SMALL_SCHED["capacities"]:
         runs = {}
         for dev in ("cpu", "cuda"):
-            common.resolve_arch_policy = lambda a: pol
+            common.resolve_arch_policy = lambda a, device=None: pol
             try:
                 eng = ContinuousBatchingEngine(
                     arch, capacity=capacity, s_cache=SMALL_SCHED["s_cache"],
@@ -438,15 +470,22 @@ def phase_train_small():
         train=TrainCfg(n_microbatches=2, compute_dtype="float32"))
     cfg = arch.model
     shape = ShapeCfg("t", 16, 4, "train")
-    params = get_api(cfg)["init"](0, cfg, common.resolve_arch_policy(arch),
-                                  device="cpu")
+    # one solve (on the card) for both sides: a card solve and a CPU solve
+    # may put sigma_chain an ulp apart
+    pol = common.resolve_arch_policy(arch, device="cuda")
+    params = get_api(cfg)["init"](0, cfg, pol, device="cpu")
     stream = SyntheticStream(DataCfg(vocab=cfg.vocab, seq_len=16,
                                      global_batch=4, seed=0))
     res = {}
     for dev in ("cpu", "cuda"):
         p = _to(params, dev)
         opt = adamw.init_opt_state(p)
-        step = steps.build_train_step(arch, shape)
+        solve = common.resolve_arch_policy
+        common.resolve_arch_policy = lambda a, device=None: pol
+        try:
+            step = steps.build_train_step(arch, shape)
+        finally:
+            common.resolve_arch_policy = solve
         losses, gns, lrs = [], [], []
         for i in range(2):
             batch = {k: torch.from_numpy(v).to(dev)
@@ -640,11 +679,11 @@ def phase_td_vmm(rows: list):
     timed on the card by `td_vmm_noise_probe`."""
     import torch
     from repro_torch.kernels.td_vmm import td_vmm as tv
-    from repro_torch.tdsim.policy import solved_td_policy
+    from repro_torch.tdsim.policy import solve_td_policy
 
-    pol = solved_td_policy(4, 4, 576, None)
+    pol = solve_td_policy(4, 4, 576, None)
     solved = (pol.sigma_chain, float(pol.tdc_q))
-    coarse = solved_td_policy(4, 4, 576, 2.0)      # q = 2 with noise
+    coarse = solve_td_policy(4, 4, 576, 2.0)       # q = 2 with noise
     gen = torch.Generator(device="cuda").manual_seed(0)
     seed = torch.tensor([33350994], dtype=torch.int64, device="cuda")
     max_err = 0.0                   # over every case, shape and policy
@@ -1108,6 +1147,185 @@ def phase_lsq_quant(rows: list):
                      **timed["lm_head"]))
 
 
+# ---------------------------------------------------------------------------
+# the design-space engine and the policy solve on the card
+# ---------------------------------------------------------------------------
+def _golden_check(doc) -> int:
+    """The golden fixture through `sweep_batched` and `design_space.evaluate`
+    on the card; returns the number of points held."""
+    import numpy as np
+    from repro_torch.core import design_space as ds
+    ns, bits = tuple(doc["ns"]), tuple(doc["bits"])
+    points, winners = {}, {}
+    for r in doc["records"]:
+        k = (r["regime"], r["n"], r["bits"])
+        if r["domain"] == "__winner__":
+            winners[k] = r["winner"]
+        else:
+            points[(r["regime"], r["domain"], r["n"], r["bits"])] = r
+    regimes = {"exact": ds.sigma_exact(), "relaxed": doc["sigma_relaxed"]}
+    held = 0
+    for regime, sigma in regimes.items():
+        g = ds.sweep_batched(ns=ns, bit_widths=bits, sigma_maxes=(
+            None if regime == "exact" else sigma), device="cuda")
+        names = g.winner_names()
+        for bi, b in enumerate(bits):
+            for ni, n in enumerate(ns):
+                pts = {d: ds.evaluate(d, n, b, sigma, device="cuda")
+                       for d in ds.DOMAINS}
+                for di, d in enumerate(g.domains):
+                    ref = points[(regime, d, n, b)]
+                    ix = (di, bi, ni, 0, 0, 0, 0, 0, 0)
+                    got = [(int(g.redundancy[ix]), int(g.tdc_q[ix])),
+                           (int(pts[d].redundancy),
+                            int(pts[d].aux.get("tdc_lsb_q", 1)))]
+                    vals = [(float(getattr(g, f)[ix]), float(getattr(
+                        pts[d], f))) for f in ("e_mac", "throughput",
+                                               "area_per_mac")]
+                    want_f = [ref[f] for f in ("e_mac", "throughput",
+                                               "area_per_mac")]
+                    if any(rq != (ref["redundancy"], ref["tdc_q"])
+                           for rq in got) or not all(
+                            np.allclose(v, w, rtol=1e-4, atol=0)
+                            for v, w in zip(vals, want_f)):
+                        fail(f"golden {regime}/{d}/n={n}/B={b}: (R, q) "
+                             f"{got}, e_mac/throughput/area {vals}, fixture "
+                             f"{(ref['redundancy'], ref['tdc_q'])} {want_f}")
+                    held += 2
+                want = winners[(regime, n, b)]
+                w_eval = min(pts, key=lambda d: pts[d].e_mac)
+                if names[bi, ni, 0, 0, 0, 0, 0, 0] != want or w_eval != want:
+                    fail(f"golden {regime} n={n} B={b}: winners "
+                         f"{names[bi, ni, 0, 0, 0, 0, 0, 0]} / {w_eval}, "
+                         f"fixture {want}")
+    return held
+
+
+def _grid_compare(corner: str, card, cpu) -> int:
+    """Card grid against CPU grid: integer fields and winners equal, floats
+    within rtol 1e-4.  A point whose integer decision differs fails unless
+    its two candidates' e_mac are under 1e-6 apart (relative): a float32
+    tie, printed and counted.  Returns the tie count."""
+    import numpy as np
+    ties, bad = [], []
+    for f in ("redundancy", "tdc_q", "l_osc"):
+        a, b = getattr(card, f), getattr(cpu, f)
+        for ix in map(tuple, np.argwhere(a != b)):
+            rel = abs(card.e_mac[ix] - cpu.e_mac[ix]) / abs(cpu.e_mac[ix])
+            (ties if rel < 1e-6 else bad).append((f, ix, a[ix], b[ix], rel))
+    wa, wb = card.winners(), cpu.winners()
+    for ix in map(tuple, np.argwhere(wa != wb)):
+        e = cpu.e_mac[(slice(None),) + ix]
+        rel = abs(e[wa[ix]] - e[wb[ix]]) / abs(e[wb[ix]])
+        (ties if rel < 1e-6 else bad).append(("winner", ix, card.domains[
+            wa[ix]], cpu.domains[wb[ix]], rel))
+    for t in ties:
+        print(f"[design_space] dense/{corner} float32 tie: {t[0]} at "
+              f"{t[1]}: card {t[2]}, CPU {t[3]}, candidates' e_mac "
+              f"{t[4]:.2e} apart")
+    if bad:
+        fail(f"dense/{corner}: {len(bad)} integer decisions differ between "
+             f"the card and the CPU, first {bad[:5]}")
+    worst = {}
+    for f in ("e_mac", "throughput", "area_per_mac", "sigma_chain",
+              "latency"):
+        a, b = getattr(card, f), getattr(cpu, f)
+        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-300)
+        worst[f] = float(rel.max())
+        if not worst[f] <= 1e-4:
+            fail(f"dense/{corner}: {f} differs by {worst[f]:.2e} relative")
+    print(f"[design_space] dense/{corner}, card vs CPU: R, q, l_osc and "
+          f"winners equal at {card.n_points} points but {len(ties)} float32 "
+          f"ties; worst relative float difference "
+          + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
+    return len(ties)
+
+
+def phase_design_space():
+    """The design-space engine on the card: the golden fixture, then the
+    dense scenario at tt, ff and ss, each swept on the card and on this
+    host's CPU through the same port and compared; the sweep's time
+    (host clock to the device sync of its one copy to the host, median of
+    3 after a warm-up), its kernel launches (profiled), and the explorer's
+    memo hits."""
+    import numpy as np
+    import torch
+    from repro_torch.core import explorer, scenario
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with open(GOLDEN) as f:
+        doc = json.load(f)
+    t0 = time.monotonic()
+    held = _golden_check(doc)
+    print(f"[design_space] golden fixture on the card: {held} points through "
+          f"sweep_batched and design_space.evaluate, (R, q) and winners "
+          f"exact, floats within rtol 1e-4 ({time.monotonic() - t0:.1f} s)")
+    sc = scenario.get_scenario("dense")
+    ties = 0
+    for corner in sc.corners:
+        scenario.sweep_scenario(sc, corner, device="cuda")      # warm-up
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            card = scenario.sweep_scenario(sc, corner, device="cuda")
+            times.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        cpu = scenario.sweep_scenario(sc, corner, device="cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        ms = statistics.median(times)
+        print(f"[design_space] dense/{corner}: {card.n_points} points, card "
+              f"sweep median {ms:.1f} ms (all {[round(t, 1) for t in times]})"
+              f", {card.n_points / ms * 1e3:.3e} points/s; this host's CPU "
+              f"{cpu_ms:.1f} ms")
+        ties += _grid_compare(corner, card, cpu)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        scenario.sweep_scenario(sc, "tt", device="cuda")
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.end - e.time_range.start for e in kernels)
+    print(f"[design_space] one dense sweep: {len(kernels)} device launches "
+          f"(kernels and copies), {busy / 1e3:.1f} ms of device time; "
+          f"float32 ties over the 3 corners: {ties}")
+    svc = explorer.ExplorerService()
+    g, miss = svc.sweep_info("dense", "tt")
+    hits = [svc.sweep_info("dense", "tt")[1]["elapsed_ms"] for _ in range(5)]
+    n = np.asarray([64.0, 576.0, 4096.0])
+    s = np.asarray([2.0, 0.5, 1.0])
+    t0 = time.perf_counter()
+    svc.evaluate_td(n, s, bits=4)
+    td_miss = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    svc.evaluate_td(n, s, bits=4)
+    td_hit = (time.perf_counter() - t0) * 1e3
+    print(f"[design_space] explorer: dense/tt miss {miss['elapsed_ms']:.1f} "
+          f"ms, repeated query (memo hit) median "
+          f"{statistics.median(hits):.4f} ms; evaluate_td of 3 points miss "
+          f"{td_miss:.2f} ms, hit {td_hit:.4f} ms; stats "
+          f"{svc.stats.snapshot()}")
+    if svc.stats.memory_hits != 5 or svc.stats.td_hits != 1:
+        fail(f"explorer memo: {svc.stats.snapshot()}")
+
+
+def phase_policy():
+    """`solve_td_policy` on the card at the keys of `POLICY_ROWS`: R and q
+    exact, sigma_chain within 1e-6 relative of the reference's."""
+    from repro_torch.core import explorer
+    from repro_torch.tdsim.policy import solve_td_policy
+    explorer.set_service(explorer.ExplorerService())
+    for key, (r, sigma, q) in POLICY_ROWS.items():
+        pol = solve_td_policy(*key)
+        rel = abs(pol.sigma_chain - sigma) / sigma
+        print(f"[policy] {key}: R {pol.redundancy}, q {pol.tdc_q}, "
+              f"sigma_chain {pol.sigma_chain!r} (reference {sigma!r}, "
+              f"{rel:.1e} relative), vdd {pol.vdd}")
+        if (pol.redundancy, pol.tdc_q) != (r, q) or not rel <= 1e-6:
+            fail(f"policy {key}: (R, q, sigma_chain) "
+                 f"{(pol.redundancy, pol.tdc_q, pol.sigma_chain)}, reference "
+                 f"{(r, q, sigma)}")
+    explorer.set_service(None)
+
+
 def kernel_modules() -> dict:
     from repro_torch.kernels.decode_gqa import decode_gqa as dg
     from repro_torch.kernels.flash_attn import flash_attn as fa
@@ -1161,6 +1379,12 @@ def phase_serve(launches: dict):
         fail(f"bad tokens {ids_cpu.shape} in [{int(ids_cpu.min())}, "
              f"{int(ids_cpu.max())}]")
     print(f"[serve] tokens[0]: {ids_cpu[0].tolist()}")
+    j = stats["j_per_token"]
+    print(f"[serve] J/token (the paper's circuit model at the solved "
+          f"policy, not a card measurement): td {j['td']:.4e}, analog "
+          f"{j['analog']:.4e}, digital {j['digital']:.4e}")
+    if not all(math.isfinite(v) and v > 0 for v in j.values()):
+        fail(f"serve: J/token {j}")
     launches["serve"] = counts
 
 
@@ -1211,6 +1435,33 @@ def _sched_report(path: str, mode: str, eng, out: dict, peak: float):
           f"{min(eng.admit_ms):.1f}, max {max(eng.admit_ms):.1f}; decode "
           f"step median {statistics.median(eng.decode_ms):.1f} ms, min "
           f"{min(eng.decode_ms):.1f}, max {max(eng.decode_ms):.1f}")
+
+
+def _energy_report(path: str, eng, out: dict) -> None:
+    """The engine's meter: J/token in the three domains at the engine's
+    policy (the paper's circuit model), the per-request rows summing to
+    the run total and the total equal to the rate times the tokens, both to
+    1e-9 relative."""
+    from repro_torch.models import common, matmul_shapes
+    from repro_torch.tdsim import energy_meter
+    m = eng.meter
+    total = out["energy_j_total"]
+    rows = sum(r["energy_j"] for r in out["per_request"])
+    by_rate = m.e_token * m.run_total_tokens()
+    reps = energy_meter.compare_domains(
+        matmul_shapes(eng.cfg), common.pol_at(eng.pol, 0),
+        sigma_max=eng._meter_sigma(), device="cuda")
+    j = {d: r.total_energy_per_token for d, r in reps.items()}
+    print(f"[{path}] J/token (the paper's circuit model, not a card "
+          f"measurement): td {j['td']:.4e} (meter {m.e_token:.4e}), analog "
+          f"{j['analog']:.4e}, digital {j['digital']:.4e}; run total "
+          f"{total:.4e} J over {m.run_total_tokens()} tokens, per-request "
+          f"rows sum {rows:.4e} J, rate x tokens {by_rate:.4e} J")
+    if not (abs(rows - total) <= 1e-9 * abs(total)
+            and abs(by_rate - total) <= 1e-9 * abs(total) and total > 0
+            and abs(j["td"] - m.e_token) <= 1e-9 * m.e_token):
+        fail(f"{path}: energy rows {rows!r}, total {total!r}, rate x tokens "
+             f"{by_rate!r}, td J/token {j['td']!r} against {m.e_token!r}")
 
 
 def phase_scheduler(launches: dict):
@@ -1268,8 +1519,63 @@ def phase_scheduler(launches: dict):
             # the reference's serving gate: slot recycling saves steps
             fail(f"{path}: continuous batching ran {d} decode steps, "
                  f"lockstep {f_out['steps']}")
+        _energy_report(path, eng, out)
         launches[path] = counts
         del runs, eng, f_eng
+
+
+def phase_scheduler_scenario(launches: dict):
+    """One more run of the continuous-batching engine at full width
+    (qwen3-8b, 36 layers, SCHED's 16 requests): per-layer budgets
+    (`--td-per-layer` cycling through SCENARIO_RUN["per_layer"]) at the
+    vdd-opt scenario's ss corner, each layer at its own solved operating
+    point.  Launches as in `phase_scheduler`."""
+    import torch
+    import repro_torch.configs as cfgs
+    from repro_torch.launch import td_cli
+
+    base = cfgs.get("qwen3-8b")
+    L = base.model.n_layers
+    spec = ",".join((SCENARIO_RUN["per_layer"] * L)[:L])
+    arch = td_cli.apply_td_args(base, "td", spec, SCENARIO_RUN["scenario"],
+                                SCENARIO_RUN["corner"])
+    t0 = time.monotonic()
+    eng, out, counts, peak = _sched_run(arch, SCHED, None, True,
+                                        kernel_modules())
+    print(f"[scheduler_scenario] qwen3-8b td, --td-per-layer "
+          f"{','.join(SCENARIO_RUN['per_layer'])} (cycled over {L} layers), "
+          f"--scenario {SCENARIO_RUN['scenario']} --corner "
+          f"{SCENARIO_RUN['corner']}: wall {time.monotonic() - t0:.1f} s "
+          f"(init and solve included)")
+    points = {}
+    for i, p in enumerate(eng.pol.layers):
+        key = (p.redundancy, p.tdc_q, p.sigma_chain, p.vdd, p.sigma_max)
+        points.setdefault(key, []).append(i)
+    for (r, q, sigma, vdd, budget), layers in points.items():
+        print(f"[scheduler_scenario] layers {layers[:4]}.. ({len(layers)}): "
+              f"budget {budget}, R {r}, q {q}, sigma_chain {sigma:.6g}, "
+              f"vdd {vdd}")
+    top = eng.pol.top
+    print(f"[scheduler_scenario] lm_head: R {top.redundancy}, q {top.tdc_q}, "
+          f"sigma_chain {top.sigma_chain:.6g}, vdd {top.vdd}, library "
+          f"{top.techlib.name}")
+    if len(points) != len(SCENARIO_RUN["per_layer"]):
+        fail(f"scheduler_scenario: {len(points)} distinct layer operating "
+             f"points, expected {len(SCENARIO_RUN['per_layer'])}")
+    _sched_report("scheduler_scenario", "continuous", eng, out, peak)
+    a, d = len(eng.admit_ms), eng.steps_run
+    check_launches("scheduler_scenario", counts, {
+        "td_vmm": (7 * L + 1) * (a + d), "flash_attn": L * a,
+        "decode_gqa": L * d, "lsq_quant": 0})
+    toks = [t for r in eng.done.values() for t in r.generated]
+    if out["requests"] != SCHED["requests"] or min(toks) < 0 or \
+            max(toks) >= arch.model.vocab:
+        fail(f"scheduler_scenario: {out['requests']} requests, tokens in "
+             f"[{min(toks)}, {max(toks)}]")
+    _energy_report("scheduler_scenario", eng, out)
+    launches["scheduler_scenario"] = counts
+    del eng
+    torch.cuda.empty_cache()
 
 
 def train_arch(mode: str):
@@ -1457,6 +1763,8 @@ def main() -> None:
     phase_build()
     print(gpu_line())
     phase_yardstick()
+    phase_design_space()
+    phase_policy()
     phase_small_reference()
     phase_train_small()
     rows: list = []
@@ -1469,7 +1777,8 @@ def main() -> None:
             "launches_by_path", "timed")
     flush_l2(release=True)
     launches: dict = {}
-    for phase in (phase_serve, phase_scheduler, phase_train):
+    for phase in (phase_serve, phase_scheduler, phase_scheduler_scenario,
+                  phase_train):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         phase(launches)

@@ -24,9 +24,13 @@
     tokens so far), so no admitted request is lost and greedy outputs
     match an uninterrupted run.
 
-Not ported yet (ROADMAP.md §1): the per-request energy meter
-(`RequestMeter`: `meter` is None in every mode, so `request_rows` and
-`summary` carry no energy fields), drift adaptation (``adapt``,
+  * **Per-request energy**: `energy_meter.RequestMeter` attributes J/token
+    to each request (prompt tokens at admission, each generated token as
+    it is recorded) at the policy's operating point, in the
+    ``meter_domain`` (td, analog or digital); `request_rows` and `summary`
+    carry the energy fields.  No meter for a precise policy.
+
+Not ported yet (ROADMAP.md §1): drift adaptation (``adapt``,
 ``resolver``, ``supply_resolver``, ``scripted_swaps``) and
 `run(schedule=..., trace=...)`; they raise `NotImplementedError`.
 
@@ -55,8 +59,9 @@ from repro_torch import device as device_mod
 from repro_torch import ft
 from repro_torch.configs.base import ShapeCfg
 from repro_torch.launch import steps as steps_lib
-from repro_torch.models import common, get_api, transformer
+from repro_torch.models import common, get_api, matmul_shapes, transformer
 from repro_torch.roofline import model as roofline_model
+from repro_torch.tdsim.energy_meter import RequestMeter
 
 __all__ = ["Request", "Slot", "ContinuousBatchingEngine"]
 
@@ -116,7 +121,8 @@ class ContinuousBatchingEngine:
     def __init__(self, arch, capacity: int = 8, s_cache: int = 128,
                  prompt_pad: int | None = None, seed: int = 0,
                  eos_id: int | None = None, params=None,
-                 kv_block: int = 64, continuous: bool = True,
+                 meter_domain: str = "td", kv_block: int = 64,
+                 continuous: bool = True,
                  clock=time.monotonic, adapt: bool = False, resolver=None,
                  supply_resolver=None, scripted_swaps=None, device=None):
         if adapt:
@@ -154,20 +160,26 @@ class ContinuousBatchingEngine:
         self.s_cache = self.kv_plan.s_cache
         self.prompt_pad = min(prompt_pad or self.s_cache, self.s_cache)
 
-        self.pol = common.resolve_arch_policy(arch)
+        self.pol = common.resolve_arch_policy(arch, device=self.device)
         if params is None:
             params = get_api(cfg)["init"](
                 seed, cfg, self.pol, device=self.device,
                 dtype=steps_lib.DTYPES[arch.train.compute_dtype])
         self.params = params
 
-        self._prefill = steps_lib.build_ragged_prefill_step(arch,
-                                                            self.prompt_pad)
+        self._prefill = steps_lib.build_ragged_prefill_step(
+            arch, self.prompt_pad, device=self.device)
         self._insert = steps_lib.build_insert_step()
         shape = ShapeCfg("serve", self.s_cache, self.capacity, "decode")
-        self._decode = steps_lib.build_serve_step(arch, shape)
+        self._decode = steps_lib.build_serve_step(arch, shape,
+                                                  device=self.device)
 
-        self.meter = None            # RequestMeter: not ported (see above)
+        pol0 = common.pol_at(self.pol, 0)
+        self.meter = (RequestMeter(matmul_shapes(cfg), pol0,
+                                   domain=meter_domain,
+                                   sigma_max=self._meter_sigma(),
+                                   device=self.device)
+                      if pol0.mode != "precise" else None)
         self.watchdog = ft.StepWatchdog()
         self.admit_ms: list[float] = []
         self.decode_ms: list[float] = []
@@ -228,6 +240,8 @@ class ContinuousBatchingEngine:
         now = self.clock()
         if req.t_admitted is None:
             req.t_admitted = now
+        if self.meter is not None:
+            self.meter.on_prefill(req.rid, len(ctx))
         # the prefill's argmax is this request's next token
         self._record_token(req, first, now)
 
@@ -236,6 +250,14 @@ class ContinuousBatchingEngine:
         req.token_s.append(now)
         if req.t_first_token is None:
             req.t_first_token = now
+        if self.meter is not None:
+            self.meter.on_decode(req.rid)
+
+    def _meter_sigma(self):
+        """The meter's budget: a solved policy prices at its own, a quant
+        policy at the representative relaxed budget 2.0."""
+        pol0 = common.pol_at(self.pol, 0)
+        return None if pol0.sigma_max is not None else 2.0
 
     def _finished(self, req: Request, last: int) -> bool:
         return req.remaining <= 0 or (self.eos_id is not None
@@ -295,6 +317,8 @@ class ContinuousBatchingEngine:
         self.steps_run = 0
         self.watchdog = ft.StepWatchdog()
         self.admit_ms, self.decode_ms = [], []
+        if self.meter is not None:
+            self.meter._usage.clear()
         self._reset_device_state()
 
     # ------------------------------------------------------------------
@@ -345,20 +369,26 @@ class ContinuousBatchingEngine:
     # telemetry
     # ------------------------------------------------------------------
     def request_rows(self) -> list[dict]:
-        """Per-request telemetry rows (CSV-ready), completion order.  No
-        energy fields: the meter is not ported."""
+        """Per-request telemetry rows (CSV-ready), completion order, with
+        the meter's energy fields when there is a meter."""
         rows = []
         for req in self.done.values():
             dts = np.diff(np.asarray(req.token_s)) * 1e3
-            rows.append({
-                "request": req.rid, "prompt_len": len(req.prompt),
-                "new_tokens": len(req.generated),
-                "readmissions": req.readmissions,
-                "ttft_ms": (req.t_first_token - req.arrival_s) * 1e3,
-                "ms_per_token_p50": (float(np.percentile(dts, 50))
-                                     if dts.size else 0.0),
-                "ms_per_token_p99": (float(np.percentile(dts, 99))
-                                     if dts.size else 0.0)})
+            row = {"request": req.rid, "prompt_len": len(req.prompt),
+                   "new_tokens": len(req.generated),
+                   "readmissions": req.readmissions,
+                   "ttft_ms": (req.t_first_token - req.arrival_s) * 1e3,
+                   "ms_per_token_p50": (float(np.percentile(dts, 50))
+                                        if dts.size else 0.0),
+                   "ms_per_token_p99": (float(np.percentile(dts, 99))
+                                        if dts.size else 0.0)}
+            if self.meter is not None:
+                rep = self.meter.request_report(req.rid)
+                row.update({"energy_j": rep["energy_j"],
+                            "j_per_token": rep["j_per_token"],
+                            "j_per_decoded_token":
+                                rep["j_per_decoded_token"]})
+            rows.append(row)
         return rows
 
     def summary(self, wall_s: float) -> dict:
@@ -366,12 +396,20 @@ class ContinuousBatchingEngine:
         new_toks = sum(r["new_tokens"] for r in rows)
         p50 = [r["ms_per_token_p50"] for r in rows if r["new_tokens"] > 1]
         p99 = [r["ms_per_token_p99"] for r in rows if r["new_tokens"] > 1]
-        return {"requests": len(rows), "new_tokens": new_toks,
-                "wall_s": wall_s,
-                "tokens_per_s": new_toks / wall_s if wall_s else 0.0,
-                "steps": self.steps_run,
-                "stragglers": self.watchdog.straggler_count,
-                "ms_per_token_p50": float(np.median(p50)) if p50 else 0.0,
-                "ms_per_token_p99": (float(np.percentile(p99, 99))
-                                     if p99 else 0.0),
-                "per_request": rows}
+        out = {"requests": len(rows), "new_tokens": new_toks,
+               "wall_s": wall_s,
+               "tokens_per_s": new_toks / wall_s if wall_s else 0.0,
+               "steps": self.steps_run,
+               "stragglers": self.watchdog.straggler_count,
+               "ms_per_token_p50": float(np.median(p50)) if p50 else 0.0,
+               "ms_per_token_p99": (float(np.percentile(p99, 99))
+                                    if p99 else 0.0),
+               "per_request": rows}
+        if self.meter is not None:
+            out["energy_j_total"] = self.meter.run_total_energy()
+            out["j_per_token"] = (out["energy_j_total"] /
+                                  max(1, self.meter.run_total_tokens()))
+            out["meter_policy_swaps"] = self.meter.policy_swaps
+            out["rate_epochs"] = self.meter.rate_epochs()
+            out["static_worst_energy_j"] = self.meter.static_worst_energy()
+        return out

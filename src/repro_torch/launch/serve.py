@@ -13,9 +13,12 @@ cache, and the continuous-batching scheduler front end (port of
 run on CUDA (pass ``--device cpu`` with ``--smoke`` for a CPU run).
 Parameters come from the port's seeded init, stored in the compute dtype;
 prompts from ``numpy.random.default_rng``, so a test can feed the same
-tokens to both packages.  Drift adaptation (``--adapt``, ``--trace``) and
-the energy meter are not ported yet: their flags raise, and no J/token is
-printed.
+tokens to both packages.  Both modes print the TD energy meter's J/token
+(the paper's circuit model: the three hardware domains for the fixed
+batch, per request in scheduler mode).  ``--td-per-layer``,
+``--scenario`` and ``--corner`` resolve the operating points as the
+reference does; drift adaptation (``--adapt``, ``--trace``) and TD
+attention (``--td-attn``) are not ported yet: their flags raise.
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ from repro_torch.configs.base import ShapeCfg
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch import td_cli
 from repro_torch.launch.scheduler import ContinuousBatchingEngine, Request
-from repro_torch.models import common, get_api
+from repro_torch.models import common, get_api, matmul_shapes
+from repro_torch.tdsim import energy_meter
 
 
 def prompts(seed: int, batch: int, prompt_len: int, vocab: int) -> np.ndarray:
@@ -53,14 +57,14 @@ def run(arch, batch: int, prompt_len: int, gen: int, seed: int = 0,
     per-step list), each timed on the host clock up to a device sync."""
     dev = device_mod.resolve(device)
     cfg = arch.model
-    pol = common.resolve_arch_policy(arch)
+    pol = common.resolve_arch_policy(arch, device=dev)
     api = get_api(cfg)
     compute_dt = steps_lib.DTYPES[arch.train.compute_dtype]
     params = api["init"](seed, cfg, pol, dtype=compute_dt, device=dev)
     s_cache = prompt_len + gen
     shape = ShapeCfg("serve", s_cache, batch, "decode")
-    prefill = steps_lib.build_prefill_step(arch, shape)
-    serve_step = steps_lib.build_serve_step(arch, shape)
+    prefill = steps_lib.build_prefill_step(arch, shape, device=dev)
+    serve_step = steps_lib.build_serve_step(arch, shape, device=dev)
     toks = torch.from_numpy(prompts(seed, batch, prompt_len,
                                     cfg.vocab)).to(dev)
 
@@ -94,6 +98,24 @@ def run(arch, batch: int, prompt_len: int, gen: int, seed: int = 0,
     if stats is not None:
         stats["prefill_ms"] = t_prefill * 1e3
         stats["decode_ms"] = [t * 1e3 for t in lat]
+
+    # the paper's energy accounting for this serving config, at the first
+    # layer's policy: a solved TD policy prices at its own operating point
+    # (vdd and budget, e.g. from --scenario/--corner), a quant policy at
+    # the representative relaxed budget
+    pol0 = common.pol_at(pol, 0)
+    if pol0.mode != "precise":
+        sigma_acct = None if pol0.sigma_max is not None else 2.0
+        reports = energy_meter.compare_domains(matmul_shapes(cfg), pol0,
+                                               sigma_max=sigma_acct,
+                                               device=dev)
+        for dom, rep in reports.items():
+            print(f"[energy] {dom:8s}: {rep.total_energy_per_token:.3e} "
+                  f"J/token over {rep.total_macs_per_token:.3e} MACs "
+                  f"(vdd={pol0.vdd:.2f})")
+        if stats is not None:
+            stats["j_per_token"] = {d: r.total_energy_per_token
+                                    for d, r in reports.items()}
     return gen_ids
 
 
@@ -134,11 +156,14 @@ def run_scheduler(arch, streams: int, prompt_len: int, gen: int,
           f"p50={out['ms_per_token_p50']:.2f} "
           f"p99={out['ms_per_token_p99']:.2f}; "
           f"stragglers={out['stragglers']}")
+    if "energy_j_total" in out:
+        print(f"[serve/sched] TD energy: {out['energy_j_total']:.3e} J "
+              f"total, {out['j_per_token']:.3e} J/token "
+              f"({eng.meter.domain} domain, per-request rows available)")
     return out
 
 
-_NOT_PORTED = ("adapt", "trace", "td_per_layer", "td_attn", "scenario",
-               "corner")
+_NOT_PORTED = ("adapt", "trace", "td_attn")
 
 
 def main(argv=None):
@@ -160,13 +185,14 @@ def main(argv=None):
                     help="scheduler mode: number of synthetic streams")
     ap.add_argument("--capacity", type=int, default=4,
                     help="scheduler mode: concurrent KV-cache slots")
+    ap.add_argument("--td-per-layer", default=None,
+                    help="heterogeneous per-layer TD policies: inline sigma "
+                    "list '0.5,1.0,...' or '@per_layer_policies.json'")
+    td_cli.add_scenario_args(ap)
     # flags of the reference's CLI that this port does not run yet
     ap.add_argument("--adapt", action="store_true")
     ap.add_argument("--trace", default=None)
-    ap.add_argument("--td-per-layer", default=None)
-    ap.add_argument("--td-attn", default=None)
-    ap.add_argument("--scenario", default=None)
-    ap.add_argument("--corner", default=None)
+    td_cli.add_td_attn_arg(ap)
     args = ap.parse_args(argv)
     given = [f for f in _NOT_PORTED if getattr(args, f) not in (None, False)]
     if given:
@@ -174,7 +200,8 @@ def main(argv=None):
             f"--{given[0].replace('_', '-')} is not yet ported to "
             "repro_torch (ROADMAP.md §1)")
     arch = cfgs.get_smoke(args.arch) if args.smoke else cfgs.get(args.arch)
-    arch = td_cli.apply_td_args(arch, args.td)
+    arch = td_cli.apply_td_args(arch, args.td, args.td_per_layer,
+                                args.scenario, args.corner)
     if args.scheduler:
         return run_scheduler(arch, args.streams, args.prompt_len, args.gen,
                              args.capacity, seed=args.seed,

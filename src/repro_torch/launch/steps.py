@@ -23,9 +23,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 
-def build_train_step(arch: ArchConfig, shape: ShapeCfg):
+def build_train_step(arch: ArchConfig, shape: ShapeCfg, device=None):
     """``train_step(params, opt_state, batch, seed) -> (params, opt_state,
-    metrics)``.
+    metrics)``.  ``device`` is where the TD policy solve runs (None = CUDA,
+    as in every builder here); the step runs where its tensors lie.
 
     The global batch splits into ``arch.microbatches_for(shape.name)``
     microbatches along dim 0; microbatch i runs under key
@@ -38,7 +39,7 @@ def build_train_step(arch: ArchConfig, shape: ShapeCfg):
     Metrics are the microbatch means of loss and ce, and grad_norm and lr,
     all device tensors: the step itself never waits for the device."""
     cfg = arch.model
-    pol = common.resolve_arch_policy(arch)
+    pol = common.resolve_arch_policy(arch, device=device)
     api = get_api(cfg)
     n_micro = arch.microbatches_for(shape.name)
     compute_dt = DTYPES[arch.train.compute_dtype]
@@ -85,9 +86,9 @@ def build_train_step(arch: ArchConfig, shape: ShapeCfg):
     return train_step
 
 
-def build_prefill_step(arch: ArchConfig, shape: ShapeCfg):
+def build_prefill_step(arch: ArchConfig, shape: ShapeCfg, device=None):
     cfg = arch.model
-    pol = common.resolve_arch_policy(arch)
+    pol = common.resolve_arch_policy(arch, device=device)
     api = get_api(cfg)
     compute_dt = DTYPES[arch.train.compute_dtype]
 
@@ -99,10 +100,10 @@ def build_prefill_step(arch: ArchConfig, shape: ShapeCfg):
     return prefill_step
 
 
-def build_serve_step(arch: ArchConfig, shape: ShapeCfg):
+def build_serve_step(arch: ArchConfig, shape: ShapeCfg, device=None):
     """One decode step: new token against a seq_len KV cache."""
     cfg = arch.model
-    pol = common.resolve_arch_policy(arch)
+    pol = common.resolve_arch_policy(arch, device=device)
     api = get_api(cfg)
     compute_dt = DTYPES[arch.train.compute_dtype]
 
@@ -115,7 +116,8 @@ def build_serve_step(arch: ArchConfig, shape: ShapeCfg):
     return serve_step
 
 
-def build_ragged_prefill_step(arch: ArchConfig, prompt_pad: int):
+def build_ragged_prefill_step(arch: ArchConfig, prompt_pad: int,
+                              device=None):
     """Bucketed prefill of the continuous-batching serve engine.
 
     ``prefill_step(params, toks, true_len) -> (next_tok (B, 1), state)``:
@@ -128,7 +130,7 @@ def build_ragged_prefill_step(arch: ArchConfig, prompt_pad: int):
     if cfg.family != "decoder":
         raise ValueError("ragged prefill requires a decoder-family model, "
                          f"got {cfg.family!r}")
-    pol = common.resolve_arch_policy(arch)
+    pol = common.resolve_arch_policy(arch, device=device)
     api = get_api(cfg)
     compute_dt = DTYPES[arch.train.compute_dtype]
 

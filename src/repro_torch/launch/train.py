@@ -7,8 +7,10 @@ runs on CUDA (pass ``--device cpu`` for a CPU run).  Wires together: config
 registry -> model zoo -> TD execution policy -> synthetic data pipeline
 (prefetch) -> train_step (gradient accumulation + AdamW) -> watchdog/retry
 fault tolerance.  Parameters come from the port's seeded init in float32.
-Checkpointing (``--ckpt-dir``), chaos schedules, per-layer policies, TD
-attention and scenarios are not ported yet: they raise.
+``--td-per-layer``, ``--scenario`` and ``--corner`` resolve the TD
+operating points as the reference does (`launch.td_cli`); checkpointing
+(``--ckpt-dir``), chaos schedules and TD attention (``--td-attn``) are not
+ported yet: they raise.
 """
 from __future__ import annotations
 
@@ -41,10 +43,11 @@ def build_session(arch, shape, ckpt_dir, seed=0, device=None):
         raise _not_ported("checkpointing (--ckpt-dir)")
     dev = device_mod.resolve(device)
     cfg = arch.model
-    pol = common.resolve_arch_policy(arch)
+    pol = common.resolve_arch_policy(arch, device=dev)
     params = get_api(cfg)["init"](seed, cfg, pol, device=dev)
     opt_state = adamw.init_opt_state(params)
-    return params, opt_state, steps_lib.build_train_step(arch, shape), 0
+    return (params, opt_state,
+            steps_lib.build_train_step(arch, shape, device=dev), 0)
 
 
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -103,7 +106,7 @@ def run(arch, shape: ShapeCfg, steps: int, ckpt_dir: str | None,
     return params, losses
 
 
-_NOT_PORTED = ("td_per_layer", "td_attn", "scenario", "corner", "ckpt_dir")
+_NOT_PORTED = ("td_attn", "ckpt_dir")
 
 
 def main(argv=None):
@@ -119,11 +122,12 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu for a smoke run)")
+    ap.add_argument("--td-per-layer", default=None,
+                    help="heterogeneous per-layer TD policies: inline sigma "
+                    "list '0.5,1.0,...' or '@per_layer_policies.json'")
+    td_cli.add_scenario_args(ap)
     # flags of the reference's CLI that this port does not run yet
-    ap.add_argument("--td-per-layer", default=None)
-    ap.add_argument("--td-attn", default=None)
-    ap.add_argument("--scenario", default=None)
-    ap.add_argument("--corner", default=None)
+    td_cli.add_td_attn_arg(ap)
     ap.add_argument("--ckpt-dir", default=None)
     args = ap.parse_args(argv)
     given = [f for f in _NOT_PORTED if getattr(args, f) is not None]
@@ -131,7 +135,8 @@ def main(argv=None):
         raise _not_ported(f"--{given[0].replace('_', '-')}")
 
     arch = cfgs.get_smoke(args.arch) if args.smoke else cfgs.get(args.arch)
-    arch = td_cli.apply_td_args(arch, args.td)
+    arch = td_cli.apply_td_args(arch, args.td, args.td_per_layer,
+                                args.scenario, args.corner)
     shape = ShapeCfg("cli", args.seq, args.batch, "train")
 
     def session():

@@ -23,34 +23,72 @@ pol_attn = td_policy.pol_attn
 # ---------------------------------------------------------------------------
 # TD policy resolution
 # ---------------------------------------------------------------------------
-def resolve_policy(td: TDExecCfg) -> td_policy.TDPolicy:
-    """One layer config -> its policy.  "td" reads the reference's solved
-    (R, q, sigma_chain) from `tdsim.policy.SOLVED` until the core/ solve is
-    ported (ROADMAP §1, step 6)."""
-    if td.mode == "precise":
-        return td_policy.PRECISE
-    if td.mode == "quant":
-        return td_policy.quant_policy(td.bits_a, td.bits_w)
-    if td.mode == "td":
-        return td_policy.solved_td_policy(td.bits_a, td.bits_w, td.n_chain,
-                                          td.sigma_max)
-    raise ValueError(f"unknown td mode {td.mode!r}")
+def resolve_policy(td: TDExecCfg, device=None) -> td_policy.TDPolicy:
+    return resolve_policies([td], device=device)[0]
 
 
-def resolve_arch_policy(arch: ArchConfig) -> td_policy.TDPolicy:
-    """An ArchConfig's homogeneous execution policy.  Per-layer policies,
-    TD attention and scenario/corner resolution are not ported yet."""
-    if arch.td_per_layer is not None:
-        raise NotImplementedError("per-layer TD policies (td_per_layer) are "
-                                  "not yet ported (ROADMAP.md §1, step 7)")
+def resolve_policies(tds, scenario=None, corner=None,
+                     device=None) -> list[td_policy.TDPolicy]:
+    """Resolve many layer configs at once: all "td"-mode entries are solved
+    by one batched (R, q, sigma) call per weight bit width.  A named
+    `scenario`/`corner` (core.scenario) resolves each "td" entry's
+    operating point first: corner-derated error budget, grid-argmin supply
+    (`tdsim.policy.apply_scenario`).  A corner without a scenario resolves
+    against the default 'vdd-opt' supply grid.  ``device``: where the
+    solve sweeps (None = the explorer service's device, CUDA)."""
+    if corner is not None and scenario is None:
+        scenario = "vdd-opt"
+    out: list[td_policy.TDPolicy | None] = [None] * len(tds)
+    td_specs, td_idx = [], []
+    for i, td in enumerate(tds):
+        if td.mode == "precise":
+            out[i] = td_policy.PRECISE
+        elif td.mode == "quant":
+            out[i] = td_policy.quant_policy(td.bits_a, td.bits_w)
+        elif td.mode == "td":
+            td_specs.append(td_policy.TDLayerSpec(
+                td.bits_a, td.bits_w, td.n_chain, td.sigma_max))
+            td_idx.append(i)
+        else:
+            raise ValueError(f"unknown td mode {td.mode!r}")
+    if scenario is not None and td_specs:
+        td_specs = td_policy.apply_scenario(td_specs, scenario, corner,
+                                            device=device)
+    for i, pol in zip(td_idx, td_policy.solve_td_policies(td_specs, device)):
+        out[i] = pol
+    return out  # type: ignore[return-value]
+
+
+def resolve_arch_policy(arch: ArchConfig, device=None
+                        ) -> td_policy.TDPolicy | td_policy.NetworkPolicy:
+    """Resolve an ArchConfig's execution policy in one shot.
+
+    Homogeneous (`td_per_layer is None`) -> a single TDPolicy.
+    Heterogeneous -> every per-layer TDExecCfg plus the top-level `td` go
+    through one `resolve_policies` call and come back as a NetworkPolicy
+    (decoder family only).  `arch.scenario`/`arch.corner` resolve every
+    "td"-mode matmul's operating point for that named scenario/corner.
+    TD attention (`arch.td_attn`) is not ported yet (ROADMAP §1, step 9).
+    """
     td_attn = getattr(arch, "td_attn", None)
     if td_attn is not None and td_attn.mode != "precise":
         raise NotImplementedError("TD attention (td_attn) is not yet ported "
                                   "(ROADMAP.md §1, step 9)")
-    if arch.scenario is not None or arch.corner is not None:
-        raise NotImplementedError("scenario/corner resolution is not yet "
-                                  "ported (ROADMAP.md §1, step 7)")
-    return resolve_policy(arch.td)
+    sc, co = arch.scenario, arch.corner
+    if arch.td_per_layer is None:
+        return resolve_policies([arch.td], scenario=sc, corner=co,
+                                device=device)[0]
+    if arch.model.family != "decoder":
+        raise ValueError("per-layer TD policies require a decoder-family "
+                         f"model, got {arch.model.family!r}")
+    n_layers = arch.model.n_layers
+    if len(arch.td_per_layer) != n_layers:
+        raise ValueError(
+            f"td_per_layer has {len(arch.td_per_layer)} entries for "
+            f"{n_layers}-layer model {arch.model.name!r}")
+    pols = resolve_policies(list(arch.td_per_layer) + [arch.td],
+                            scenario=sc, corner=co, device=device)
+    return td_policy.NetworkPolicy(layers=tuple(pols[:-1]), top=pols[-1])
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@
 ``true_len`` the prefill serves a right-padded bucket and returns the
 logits at each row's true last position; a decode step on per-row caches
 (the serving engine's ragged slots) puts each row's query at its own fill
-index.  The enc-dec family and the energy-meter ledger come later.
+index.  `matmul_shapes` is the energy meter's ledger of every matmul a
+token runs.  The enc-dec family comes later.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.models import common, transformer
+from repro_torch.tdsim.energy_meter import MatmulShape
 
 
 def _dec_init(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
@@ -63,6 +65,31 @@ def _dec_decode(params, tok, state, cfg: ModelCfg, pol):
     logits, new_caches, _ = transformer.forward(
         params, {"tokens": tok}, cfg, pol, caches=caches, positions=pos)
     return logits[:, -1], {"layers": new_caches, "enc_out": None}
+
+
+# ---------------------------------------------------------------------------
+# energy-meter ledger: every matmul per token, layer counts folded in
+# ---------------------------------------------------------------------------
+def matmul_shapes(cfg: ModelCfg) -> list[MatmulShape]:
+    """The matmuls one token runs through a dense decoder (attention
+    projections, the SwiGLU MLP, lm_head), each with its layer count, as
+    the reference's ledger lists them."""
+    if cfg.family != "decoder" or cfg.moe is not None or \
+            cfg.rwkv is not None or cfg.ssm is not None or \
+            any(cfg.mixer_at(i) != "attn" for i in range(cfg.n_layers)):
+        raise NotImplementedError(
+            f"matmul_shapes of {cfg.name!r}: only dense attention decoders "
+            "are ported (ROADMAP.md §1, step 13)")
+    d, hd = cfg.d_model, cfg.hd
+    hq, hkv, n = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+    return [MatmulShape("attn.q", d, hq * hd, n),
+            MatmulShape("attn.k", d, hkv * hd, n),
+            MatmulShape("attn.v", d, hkv * hd, n),
+            MatmulShape("attn.o", hq * hd, d, n),
+            MatmulShape("mlp.wi", d, cfg.d_ff, n),
+            MatmulShape("mlp.wg", d, cfg.d_ff, n),
+            MatmulShape("mlp.wo", cfg.d_ff, d, n),
+            MatmulShape("lm_head", d, cfg.vocab, 1.0)]
 
 
 _API = {

@@ -65,9 +65,10 @@ def _setup(mode, monkeypatch):
         monkeypatch.setattr(jsteps.common, "resolve_arch_policy",
                             lambda a: JPolicy(mode="td", n_chain=64))
         monkeypatch.setattr(tsteps.common, "resolve_arch_policy",
-                            lambda a: TPolicy(mode="td", n_chain=64))
+                            lambda a, device=None: TPolicy(mode="td",
+                                                            n_chain=64))
     return (ja, ta, jsteps.common.resolve_arch_policy(ja),
-            tsteps.common.resolve_arch_policy(ta))
+            tsteps.common.resolve_arch_policy(ta, device="cpu"))
 
 
 def _bits(x) -> np.ndarray:
@@ -99,7 +100,7 @@ def test_ragged_prefill_insert_and_per_row_decode(params, monkeypatch, mode):
     j_ins = jax.jit(jsteps.build_insert_step())
     j_dec = jax.jit(lambda p, t, s: jget_api(cfg_j)["decode_step"](
         p, t, s, cfg_j, jpol))
-    t_pre = tsteps.build_ragged_prefill_step(ta, PAD)
+    t_pre = tsteps.build_ragged_prefill_step(ta, PAD, device="cpu")
     t_ins = tsteps.build_insert_step()
     t_api = tget_api(cfg_t)
 

@@ -6,7 +6,8 @@ numpy-seeded ragged requests.
 * Against the JAX engine (`repro.launch.scheduler`) at capacity 3, float32
   compute, in quant mode, td at sigma = 0 (the policy built by hand) and
   td at the solved exact-regime policy (noise on): each request's
-  generated tokens, `steps_run` and the completion order are equal.
+  generated tokens, `steps_run` and the completion order are equal, and
+  the energy meter's per-request and total J/token within rtol 1e-4.
   bfloat16 is left out: the JAX engine jits its steps, and XLA's CPU jit
   drops bf16 roundings the port keeps (ROADMAP §3).
 * The JAX engine's own gates (`tests/test_serving.py`), for the port, in
@@ -90,7 +91,8 @@ def test_engine_matches_reference_engine(params, monkeypatch, mode):
         monkeypatch.setattr(jcommon, "resolve_arch_policy",
                             lambda a: JPolicy(mode="td", n_chain=64))
         monkeypatch.setattr(tcommon, "resolve_arch_policy",
-                            lambda a: TPolicy(mode="td", n_chain=64))
+                            lambda a, device=None: TPolicy(mode="td",
+                                                            n_chain=64))
     jeng = jsched.ContinuousBatchingEngine(ja, capacity=3, s_cache=S_CACHE,
                                            params=params[0], kv_block=8)
     teng = tsched.ContinuousBatchingEngine(ta, capacity=3, s_cache=S_CACHE,
@@ -106,8 +108,15 @@ def test_engine_matches_reference_engine(params, monkeypatch, mode):
         assert teng.done[rid].generated == req.generated, f"rid={rid}"
     assert tout["requests"] == len(LENS)
     assert tout["new_tokens"] == jout["new_tokens"]
-    assert teng.meter is None and "energy_j_total" not in tout
-    assert "energy_j" not in tout["per_request"][0]
+    # the energy meter: the same J/token per request and in total
+    assert teng.meter is not None and jeng.meter is not None
+    for k in ("energy_j_total", "j_per_token", "static_worst_energy_j"):
+        np.testing.assert_allclose(tout[k], jout[k], rtol=1e-4)
+    assert tout["meter_policy_swaps"] == jout["meter_policy_swaps"] == 0
+    for tr, jr in zip(tout["per_request"], jout["per_request"]):
+        assert tr["request"] == jr["request"]
+        for k in ("energy_j", "j_per_token", "j_per_decoded_token"):
+            np.testing.assert_allclose(tr[k], jr[k], rtol=1e-4)
 
 
 def test_fifo_admission_order(params):
@@ -140,8 +149,8 @@ def test_ragged_matches_sequential_oracle(params):
              for r in reqs])
     for r in reqs:
         s1 = TShape("oracle", len(r.prompt) + r.max_new_tokens, 1, "decode")
-        prefill = tsteps.build_prefill_step(eng.arch, s1)
-        step = tsteps.build_serve_step(eng.arch, s1)
+        prefill = tsteps.build_prefill_step(eng.arch, s1, device="cpu")
+        step = tsteps.build_serve_step(eng.arch, s1, device="cpu")
         with torch.inference_mode():
             logits, state = prefill(eng.params, {
                 "tokens": torch.from_numpy(r.prompt)[None]})

@@ -73,7 +73,8 @@ def _serve(params, mode, n_chain, dtype, jit, monkeypatch, sigma0=False):
         monkeypatch.setattr(jsteps.common, "resolve_arch_policy",
                             lambda a: JPolicy(mode="td", n_chain=n_chain))
         monkeypatch.setattr(tsteps.common, "resolve_arch_policy",
-                            lambda a: TPolicy(mode="td", n_chain=n_chain))
+                            lambda a, device=None: TPolicy(
+                                mode="td", n_chain=n_chain))
     jp, tp = params
     toks = tserve.prompts(1, B, PROMPT, ja.model.vocab)
     j_shape = JShape("serve", PROMPT + GEN, B, "decode")
@@ -82,8 +83,8 @@ def _serve(params, mode, n_chain, dtype, jit, monkeypatch, sigma0=False):
     j_srv = jsteps.build_serve_step(ja, j_shape)
     if jit:
         j_pre, j_srv = jax.jit(j_pre), jax.jit(j_srv)
-    t_pre = tsteps.build_prefill_step(ta, t_shape)
-    t_srv = tsteps.build_serve_step(ta, t_shape)
+    t_pre = tsteps.build_prefill_step(ta, t_shape, device="cpu")
+    t_srv = tsteps.build_serve_step(ta, t_shape, device="cpu")
 
     jl, js = j_pre(jp, {"tokens": jnp.asarray(toks)})
     tl, ts = t_pre(tp, {"tokens": torch.from_numpy(toks)})

@@ -43,7 +43,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import common as tcommon
 from repro_torch.optim import adamw as tadamw
 from repro_torch.tdsim import td_linear as tlin
-from repro_torch.tdsim.policy import solved_td_policy
+from repro_torch.tdsim.policy import solve_td_policy
 
 from torch_train_parity import archs, init_pair
 
@@ -159,7 +159,7 @@ def test_apply_updates_matches_reference():
 # straight-through backward and flash backward
 # ---------------------------------------------------------------------------
 def _solved_pair(n_chain):
-    tpol = solved_td_policy(4, 4, n_chain)
+    tpol = solve_td_policy(4, 4, n_chain, device="cpu")
     jpol = JPolicy(mode="td", n_chain=n_chain, redundancy=tpol.redundancy,
                    sigma_chain=tpol.sigma_chain, tdc_q=tpol.tdc_q)
     return jpol, tpol
@@ -262,7 +262,8 @@ def test_remat_full_equals_none():
         _, ta = archs("qwen3-8b", "td", "float32", remat=remat)
         _, tp = init_pair(archs("qwen3-8b", "td", "float32")[0])
         to = tadamw.init_opt_state(tp)
-        step = tsteps.build_train_step(ta, TShape("t", 16, 4, "train"))
+        step = tsteps.build_train_step(ta, TShape("t", 16, 4, "train"),
+                                       device="cpu")
         batch = TStream(TDataCfg(vocab=128, seq_len=16, global_batch=4,
                                  seed=0)).batch(0)
         tp, to, m = step(tp, to, {k: torch.from_numpy(v)
@@ -275,14 +276,15 @@ def test_remat_full_equals_none():
         assert torch.equal(a, b)
     with pytest.raises(NotImplementedError, match="dots"):
         _, ta = archs("qwen3-8b", "td", "float32", remat="dots")
-        step = tsteps.build_train_step(ta, TShape("t", 16, 4, "train"))
+        step = tsteps.build_train_step(ta, TShape("t", 16, 4, "train"),
+                                       device="cpu")
         step(tp, to, {k: torch.from_numpy(v) for k, v in batch.items()}, 0)
 
 
 def test_train_run_matches_reference_driver(monkeypatch, capsys):
     """Both drivers, 3 steps of the qwen3-8b smoke model in td mode at
-    float32 compute from the reference's init; the port's CLI on the CPU;
-    unported flags raise."""
+    float32 compute from the reference's init; the port's CLI on the CPU,
+    also at a scenario and corner; unported flags raise."""
     ja, ta = archs("qwen3-8b", "td", "float32", n_micro=1)
     jp, tp = init_pair(ja)
     monkeypatch.setattr(jtrain, "get_api", lambda cfg: {
@@ -302,8 +304,12 @@ def test_train_run_matches_reference_driver(monkeypatch, capsys):
                           "--device", "cpu"])
     assert len(losses) == 2 and np.all(np.isfinite(losses))
     assert "[train] done." in capsys.readouterr().out
-    for flag in (["--ckpt-dir", "ckpt"], ["--td-attn", "td"],
-                 ["--scenario", "edge"]):
+    losses = ttrain.main(["--smoke", "--arch", "qwen3-8b", "--td", "td",
+                          "--scenario", "edge", "--corner", "ss",
+                          "--steps", "1", "--seq", "16", "--batch", "4",
+                          "--device", "cpu"])
+    assert len(losses) == 1 and np.all(np.isfinite(losses))
+    for flag in (["--ckpt-dir", "ckpt"], ["--td-attn", "td"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ttrain.main(["--smoke", "--device", "cpu", *flag])
     with pytest.raises(NotImplementedError, match="not yet ported"):

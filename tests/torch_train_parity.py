@@ -74,7 +74,8 @@ def run_both(ja, ta, steps: int, jit: bool, monkeypatch):
     jp, tp = init_pair(ja)
     jo, to = jadamw.init_opt_state(jp), tadamw.init_opt_state(tp)
     jstep = jsteps.build_train_step(ja, JShape("t", SEQ, BATCH, "train"))
-    tstep = tsteps.build_train_step(ta, TShape("t", SEQ, BATCH, "train"))
+    tstep = tsteps.build_train_step(ta, TShape("t", SEQ, BATCH, "train"),
+                                    device="cpu")
     if jit:
         jstep = jax.jit(jstep)
     else:
