@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-1. builds the four CUDA kernels of the serve and train paths from
+1. builds the four CUDA kernels of the serve, train and noise-loop paths from
    `src/repro_torch/csrc` (one nvcc per source, all at once) and prints
    ptxas's register and spill report;
 2. prints the card's name and power limit (nvidia-smi) and the floor of
@@ -55,6 +55,17 @@
    often as the path calls it, the tokens must be in range, every
    request finished, slot recycling must save decode steps on the
    serving gate's traffic, and the losses must be finite;
+   then runs the paper's noise loop on full-width ResNet20-CIFAR
+   (`phase_noise_loop`, 22 sites, n_chain 576): 150 quant-mode SGD steps
+   on 512 synthetic images, the per-site batched sigma_max search (286
+   probes in 22 chunks of 13, every probe's conv a lane of one td_vmm
+   launch a site a chunk: 484 launches) on 512 eval images, the site-0
+   scalar search within one grid step of it and slower than it x 22 (the
+   reference bench's two gates), the network-level sweep and the per-site
+   policy solve on the card; then holds td_vmm's lane axis to its plain
+   version and to single-lane launches bit for bit (noise included) and
+   times it at the stage-0 conv2 at 13 lanes, and checks
+   `simulate_chain_errors` (1e6 x 576 cells) against `chain_stats`;
 6. profiles a shorter serve run, a short scheduler run (4 requests,
    capacity 4) and a td train step under torch.profiler and prints where
    the device time goes, attention's device time per launch included; a
@@ -1063,9 +1074,12 @@ def phase_lsq_quant(rows: list):
     """lsq_quant against its plain version at the train path's shapes:
     every weight of the 4-layer qwen3-8b model (lm_head included), the two
     activation widths of a microbatch, and a length that is not a multiple
-    of the vector width (with NaN and infinities); f32 and bf16; step sizes
-    with exact .5 ties, a random one and one below the 1e-8 floor.  Must
-    be bit-exact (max_abs_err 0)."""
+    of the vector width (with NaN and infinities), in f32 and bf16; and the
+    noise loop's f32 shapes (resnet20-cifar's im2col patches of the stem
+    and a stage-0 conv at 512 images, its smallest and largest conv
+    weights and the head's weight); step sizes with exact .5 ties, a
+    random one and one below the 1e-8 floor.  Must be bit-exact
+    (max_abs_err 0)."""
     import torch
     from repro_torch.kernels.lsq_quant import lsq_quant as lq
     from repro_torch.kernels.lsq_quant.ref import lsq_quant_ref
@@ -1075,12 +1089,18 @@ def phase_lsq_quant(rows: list):
               ("mlp.wi/wg", (d, f)), ("mlp.wo", (f, d)), ("lm_head", (d, v)),
               ("act d_model", (1, 128, d)), ("act d_ff", (1, 128, f)),
               ("odd length", (1_000_003,))]
+    noise_loop = [("resnet stem patches", (512, 32, 32, 27)),
+                  ("resnet s0 conv patches", (512, 32, 32, 144)),
+                  ("resnet stem weight", (27, 16)),
+                  ("resnet s2 conv weight", (576, 64)),
+                  ("resnet head weight", (64, 10))]
     cases = [(0.25, -8, 7), (0.0371, 0, 255), (1e-9, -8, 7)]
     gen = torch.Generator(device="cuda").manual_seed(3)
     n_cases = 0
     max_err = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for label, shape in shapes:
+    for dtype, dtype_shapes in ((torch.float32, shapes + noise_loop),
+                                (torch.bfloat16, shapes)):
+        for label, shape in dtype_shapes:
             for s_val, qn, qp in cases:
                 x = torch.randn(shape, generator=gen, device="cuda") * 2.0
                 ties = (torch.randint(-20, 20, shape, generator=gen,
@@ -1103,8 +1123,9 @@ def phase_lsq_quant(rows: list):
                           f"s={s_val} [{qn}, {qp}]: differs, max |kernel - "
                           f"plain| {err:g}")
                 del x, ties, got, want
-    print(f"[lsq_quant] {n_cases} cases (8 shapes x 2 dtypes x 3 step "
-          f"sizes): max |kernel - plain| {max_err:g} (tolerance 0, bit "
+    print(f"[lsq_quant] {n_cases} cases ({len(shapes)} shapes x 2 dtypes "
+          f"and {len(noise_loop)} noise-loop shapes in f32, x {len(cases)} "
+          f"step sizes): max |kernel - plain| {max_err:g} (tolerance 0, bit "
           f"patterns compared)")
     if max_err != 0.0:
         fail("lsq_quant is not bit-exact with its plain version")
@@ -1650,6 +1671,372 @@ def phase_train(launches: dict):
         launches[f"train_{mode}"] = counts
 
 
+# ---------------------------------------------------------------------------
+# The paper's noise loop (Fig. 10 -> Fig. 11) on full-width ResNet20-CIFAR:
+# quant-mode training as `benchmarks/bench_noise_tolerance._train_resnet`
+# (512 synthetic images, 150 SGD steps at lr 0.05), the per-site batched
+# sigma_max search over its 22 sites (chunk 13: one layer's 12 noisy
+# probes and its clean one), the site-0 scalar check and the bench's
+# timing gate, the network-level sweep and the per-site policy solve.
+NOISE_LOOP = dict(train_images=512, eval_images=512, steps=150, lr=0.05,
+                  sigmas=(0.25, 0.5, 1.0, 2.0, 4.0, 8.0), n_repeats=2,
+                  chunk=13, seed=0, n_chain=576, mc_draws=10**6)
+# the lane kernel's checks at 13 lanes, shared w, (label, M, K, N): the
+# path's own launches over the 512 eval images, the stem, the stage-2
+# conv2 and the head (all on the block route)
+LANE_CHECKS = [("stem", 512 * 32 * 32, 27, 16),
+               ("s2 conv2", 512 * 8 * 8, 576, 64), ("head", 512, 64, 10)]
+
+
+def _lane_check(tv, label, x, w, params, seed, kw, want=None) -> float:
+    """A lane launch against its plain version (``want``, computed when
+    None) and against one single-lane launch a lane: bit for bit, noise
+    included.  Returns max |kernel - plain| (0)."""
+    import torch
+    got = tv.td_vmm(x, w, params, seed, **kw)
+    if want is None:
+        want = tv.td_vmm_plain(x, w, params, seed, **kw)
+    singles = torch.stack([
+        tv.td_vmm(x[p], w[p] if w.dim() == 3 else w, params[p],
+                  seed[p:p + 1], **kw) for p in range(x.shape[0])])
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    plan = tv.td_vmm_plan(x.shape[1], x.shape[2], w.shape[-1], kw["n_chain"],
+                          kw["bits_a"])
+    w_kind = "per lane" if w.dim() == 3 else "shared"
+    print(f"[noise_loop] lanes {label}: P={x.shape[0]} M={x.shape[1]} "
+          f"K={x.shape[2]} N={w.shape[-1]} w {w_kind} "
+          f"bits {kw['bits_a']}/{kw['bits_w']}, route {plan.route}: max "
+          f"|kernel - plain| {err:g}, lanes == single launches "
+          f"{torch.equal(got, singles)}")
+    if not (_bits_equal(got, want) and _bits_equal(got, singles)):
+        fail(f"td_vmm lanes ({label}) differ from the plain version or the "
+             f"single-lane launches")
+    return err
+
+
+def phase_noise_loop(launches: dict, rows: list):
+    """The noise loop's main path (counted), then td_vmm's lane axis
+    against its plain version and single-lane launches at the path's
+    shapes, timed at the stage-0 conv2 at full lanes, and
+    `simulate_chain_errors` on the card against `chain_stats`."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import resnet20_cifar
+    from repro_torch.core import chain
+    from repro_torch.core import noise_tolerance as nt
+    from repro_torch.models import resnet
+    from repro_torch.optim.adamw import tree_leaves_with_path
+    from repro_torch.tdsim import td_linear
+    from repro_torch.tdsim.policy import TDPolicy, solve_network_policies
+    from repro_torch.kernels.td_vmm import ref as td_ref
+
+    cfg, conf, dev = resnet20_cifar.CONFIG, NOISE_LOOP, "cuda"
+    sites = resnet.noise_sites(cfg)
+    n_sites = len(sites)
+    n_chain = 9 * max(cfg.stages)
+    if (n_chain, n_sites) != (conf["n_chain"], 22):
+        fail(f"resnet20-cifar: n_chain {n_chain}, {n_sites} sites")
+    sigmas, reps, chunk = conf["sigmas"], conf["n_repeats"], conf["chunk"]
+    per = len(sigmas) * reps + 1
+    key = prng.key(conf["seed"])
+    mods = kernel_modules()
+    for m in mods.values():
+        m.launches = 0
+    t_phase = time.monotonic()
+
+    # 1. init and data
+    pol_q = TDPolicy(mode="quant", bits_a=4, bits_w=4)
+    gen = torch.Generator(device=dev).manual_seed(conf["seed"])
+    params = resnet.init_params(gen, cfg, pol_q, device=dev)
+    imgs, labels = resnet.make_synthetic_cifar(gen, conf["train_images"],
+                                               cfg)
+    eval_gen = torch.Generator(device=dev).manual_seed(
+        prng.fold_in(key, 999)[1])
+    eval_imgs, eval_labels = resnet.make_synthetic_cifar(
+        eval_gen, conf["eval_images"], cfg)
+
+    # 2. quant-mode training, plain SGD
+    leaves = [t for _, t in tree_leaves_with_path(params)]
+    for t in leaves:
+        t.requires_grad_(True)
+    onehot = torch.nn.functional.one_hot(labels, cfg.classes).float()
+    losses, step_ms = [], []
+    for _ in range(conf["steps"]):
+        t0 = time.perf_counter()
+        logits = resnet.forward(params, imgs, cfg, pol_q)
+        loss = -(torch.log_softmax(logits, -1) * onehot).sum(-1).mean()
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for t, g in zip(leaves, grads):
+                t -= conf["lr"] * g
+        losses.append(float(loss.detach()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    for t in leaves:
+        t.requires_grad_(False)
+    with torch.no_grad():
+        train_acc = float((resnet.forward(params, imgs, cfg, pol_q).argmax(-1)
+                           == labels).float().mean())
+    print(f"[noise_loop] resnet20-cifar stages {cfg.stages}, "
+          f"{cfg.blocks_per_stage} blocks a stage, {cfg.img}x{cfg.img}, "
+          f"{n_sites} sites, n_chain {n_chain}: quant 4/4 training, "
+          f"{conf['steps']} SGD steps at lr {conf['lr']} on "
+          f"{conf['train_images']} images: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, train accuracy {train_acc:.4f}, step ms "
+          f"median {statistics.median(step_ms):.2f} (first "
+          f"{step_ms[0]:.1f})")
+    # trained: finite losses that fell, accuracy well above chance
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0] or train_acc < 2.0 / cfg.classes:
+        fail(f"noise loop training: losses {losses[0]} -> {losses[-1]}, "
+             f"train accuracy {train_acc}")
+
+    # 3. the per-site batched search
+    base = TDPolicy(mode="td", bits_a=4, bits_w=4, n_chain=n_chain,
+                    sigma_chain=0.0, tdc_q=1)
+
+    def site_eval(sv, keys):
+        logits = resnet.forward_lanes(params, eval_imgs, cfg, base, sv, keys)
+        return (logits.argmax(-1) == eval_labels).float().mean(-1)
+
+    def scalar_site0(s, k):
+        pols = [base.replace(sigma_chain=s if i == 0 else 0.0)
+                for i in range(n_sites)]
+        with torch.no_grad():
+            logits = resnet.forward(params, eval_imgs, cfg, pols, k)
+        return float((logits.argmax(-1) == eval_labels).float().mean())
+
+    # warm-up: one chunk noisy at every site, one single pass
+    warm = site_eval(torch.ones(chunk, n_sites, device=dev),
+                     prng.split(key, chunk))
+    scalar_site0(1.0, key)
+    torch.cuda.synchronize()
+    del warm
+    tv = mods["td_vmm"]
+    n0 = tv.launches
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = nt.find_sigma_max_batched(site_eval, sigmas, key, n_layers=n_sites,
+                                    n_repeats=reps, chunk_size=chunk,
+                                    device=dev)
+    torch.cuda.synchronize()
+    t_batched = time.perf_counter() - t0
+    search_launches = tv.launches - n0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_chunks = -(-n_sites * per // chunk)
+    print(f"[noise_loop] per-site search: {res.n_evals} probes in "
+          f"{n_chunks} chunks of {chunk}, {n_sites} sites x sigmas "
+          f"{list(sigmas)} x {reps} repeats (+ clean), "
+          f"{conf['eval_images']} eval images: wall {t_batched:.3f} s, "
+          f"td_vmm launches {search_launches}, peak memory {peak:.2f} GiB")
+    print(f"[noise_loop] acc_clean per site {res.acc_clean.tolist()}")
+    for i, site in enumerate(sites):
+        print(f"[noise_loop] sigma_max {site}: {res.sigma_max[i]:.4f} "
+              f"(rel_drop {np.round(res.rel_drop[i], 4).tolist()})")
+    if search_launches != n_sites * n_chunks or n_chunks != 22:
+        fail(f"per-site search: {search_launches} td_vmm launches in "
+             f"{n_chunks} chunks, expected {n_sites} x 22")
+    if not np.isfinite(res.sigma_max).all() or \
+            res.acc_clean.min() < 2.0 / cfg.classes:
+        fail(f"per-site search: sigma_max {res.sigma_max}, acc_clean "
+             f"{res.acc_clean}")
+
+    # 4. the scalar search of site 0 and the bench's two gates
+    t0 = time.perf_counter()
+    res0 = nt.find_sigma_max(scalar_site0, sigmas, prng.fold_in(key, 0),
+                             n_repeats=reps)
+    t_scalar = time.perf_counter() - t0
+    gaps = np.diff(np.asarray(sigmas, np.float64))
+    cell = int(np.clip(np.searchsorted(sigmas, res0.sigma_max) - 1, 0,
+                       len(gaps) - 1))
+    d0 = abs(res0.sigma_max - float(res.sigma_max[0]))
+    print(f"[noise_loop] site 0 scalar: sigma_max {res0.sigma_max:.4f} "
+          f"against batched {res.sigma_max[0]:.4f} (|diff| {d0:.3g}, grid "
+          f"step {gaps[cell]:g}); rel_drop equal "
+          f"{np.array_equal(res0.rel_drop, res.rel_drop[0])}; wall "
+          f"{t_scalar:.3f} s for {per} evals, x {n_sites} sites = "
+          f"{t_scalar * n_sites:.3f} s against batched {t_batched:.3f} s "
+          f"({t_scalar * n_sites / t_batched:.2f}x)")
+    if d0 > float(gaps[cell]) + 1e-6:
+        fail(f"site 0 scalar/batched sigma_max diverge: {d0} > "
+             f"{gaps[cell]}")
+    # stricter than the bench: a lane pass is the single pass bit for bit
+    if not (np.array_equal(res0.rel_drop, res.rel_drop[0])
+            and res0.acc_clean == res.acc_clean[0]):
+        fail("site 0: the scalar search's accuracies differ from the "
+             "batched search's")
+    if not t_batched < t_scalar * n_sites:
+        fail(f"batched {t_batched:.3f} s not faster than scalar "
+             f"{t_scalar * n_sites:.3f} s ({n_sites} sites)")
+
+    # 5. the network-level sweep (Fig. 10b): noise at every site
+    def net_eval(sv, keys):
+        return site_eval(sv.expand(-1, n_sites), keys)
+
+    t0 = time.perf_counter()
+    net = nt.find_sigma_max_batched(net_eval, sigmas, key, n_layers=1,
+                                    n_repeats=reps, chunk_size=chunk,
+                                    device=dev).layer(0)
+    t_net = time.perf_counter() - t0
+    print(f"[noise_loop] network sweep (Fig. 10b): acc_clean "
+          f"{net.acc_clean:.4f}, rel_drop "
+          + ", ".join(f"{s:g}: {d:.4f}" for s, d in zip(net.sigmas,
+                                                        net.rel_drop))
+          + f"; sigma_max {net.sigma_max:.4f}; wall {t_net:.3f} s")
+
+    # 6. the per-site policies (Fig. 11), solved on the card, evaluated
+    t0 = time.perf_counter()
+    solved = solve_network_policies(res.sigma_max, bits_a=4, bits_w=4,
+                                    n_chain=n_chain, device=dev)
+    t_solve = time.perf_counter() - t0
+    for site, sm, pol in zip(sites, res.sigma_max, solved.layers):
+        print(f"[noise_loop] policy {site}: sigma_max {sm:.4f} -> R "
+              f"{pol.redundancy}, q {pol.tdc_q}, sigma_chain "
+              f"{pol.sigma_chain:.6f}")
+    with torch.no_grad():
+        logits = resnet.forward(params, eval_imgs, cfg, list(solved.layers),
+                                prng.fold_in(key, 4242))
+    acc_solved = float((logits.argmax(-1) == eval_labels).float().mean())
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t_phase
+    print(f"[noise_loop] solve {t_solve * 1e3:.1f} ms on the card; eval "
+          f"accuracy at the solved policies {acc_solved:.4f} (clean "
+          f"{net.acc_clean:.4f}); the path's wall {wall:.1f} s")
+    counts = {n: m.launches for n, m in mods.items()}
+    # warm-up 2 passes, search, scalar (per evals), network (1 chunk),
+    # solved eval: 22 td_vmm launches a pass; training: 2 lsq_quant a site
+    # a forward, 150 steps and the accuracy pass
+    expected = {"td_vmm": n_sites * (2 + n_chunks + per + 1 + 1),
+                "lsq_quant": 2 * n_sites * (conf["steps"] + 1),
+                "flash_attn": 0, "decode_gqa": 0}
+    check_launches("noise_loop", counts, expected)
+    if not math.isfinite(acc_solved) or not math.isfinite(net.sigma_max):
+        fail(f"noise loop: accuracy {acc_solved}, sigma_max {net.sigma_max}")
+    launches["noise_loop"] = counts
+    del params, imgs, eval_imgs, leaves, grads, logits
+    torch.cuda.empty_cache()
+
+    # 7. the lane kernel against its plain version and single launches
+    cgen = torch.Generator(device=dev).manual_seed(7)
+    pol_s = (1.9179178476333618, 2.0)                # solve_td_policy 2.0
+    max_err = 0.0
+    for bits_a, bits_w in ((4, 4), (8, 8)):
+        kw = dict(bits_a=bits_a, bits_w=bits_w, n_chain=n_chain)
+        for label, m, k, n in LANE_CHECKS:
+            p_l = chunk
+            x = _codes(cgen, (p_l, m, k), bits_a)
+            w = _codes(cgen, (k, n), bits_w)
+            par = torch.tensor([[pol_s[0] * (i % 3) / 2, 1.0 + i % 2]
+                                for i in range(p_l)], device=dev)
+            # a column of a wider table, as forward_lanes passes them
+            seed = torch.randint(0, 2**32, (p_l, 3), generator=cgen,
+                                 device=dev, dtype=torch.int64)[:, 1]
+            max_err = max(max_err, _lane_check(tv, label, x, w, par, seed,
+                                               kw))
+        # the split route: 4 lanes of M 4, K 1000 (2 segments), w a lane
+        x = _codes(cgen, (4, 4, 1000), bits_a)
+        w = _codes(cgen, (4, 1000, 96), bits_w)
+        par = torch.tensor([[0.7, 1.0], [pol_s[0], 2.0], [0.0, 1.0],
+                            [2.5, 3.0]], device=dev)
+        seed = torch.tensor([3, 0x9E3779B9, 77, 2**32 - 1],
+                            dtype=torch.int64, device=dev)
+        max_err = max(max_err, _lane_check(tv, "split", x, w, par, seed, kw))
+    # the head through linear_lanes (bias) against one td_matmul a lane
+    hx = torch.randn((chunk, conf["eval_images"], 64), generator=cgen,
+                     device=dev)
+    hp = {"w": 0.1 * torch.randn((64, 10), generator=cgen, device=dev),
+          "b": torch.randn(10, generator=cgen, device=dev),
+          "s_a": torch.tensor(0.3, device=dev),
+          "s_w": torch.tensor(0.02, device=dev)}
+    hsig = torch.linspace(0.0, 4.0, chunk, device=dev)
+    hq = torch.ones(chunk, device=dev)
+    keys = prng.split(key, chunk)
+    hseed = torch.tensor([td_ref.derive_seed(kk) for kk in keys],
+                         device=dev)
+    got = td_linear.linear_lanes(hp, hx, base, hsig, hq, hseed)
+    singles = torch.stack([td_linear.linear(
+        hp, hx[i], base.replace(sigma_chain=float(hsig[i])), keys[i])
+        for i in range(chunk)])
+    if not _bits_equal(got, singles):
+        fail("linear_lanes (head, bias) differs from single td_matmuls")
+    print("[noise_loop] head linear_lanes (bias) == one td_matmul a lane")
+
+    # the stage-0 conv2 at full lanes, timed in turns, then held bit for
+    # bit against the first timed plain call's output
+    m0 = conf["eval_images"] * cfg.img ** 2
+    k0, n0_ = 9 * cfg.stages[0], cfg.stages[0]
+    kw = dict(bits_a=4, bits_w=4, n_chain=n_chain)
+    x = _codes(cgen, (chunk, m0, k0), 4)
+    w = _codes(cgen, (k0, n0_), 4)
+    par = torch.tensor([[pol_s[0], 2.0]] * chunk, device=dev)
+    seed = torch.arange(chunk, dtype=torch.int64, device=dev) + 11
+    print(f"[noise_loop] card before timing: {gpu_state()}")
+    plain_out = []
+
+    def plain_ms():
+        """One call of the plain version between an event pair: it
+        allocates gigabytes a lane, so the host, not a spin, paces it."""
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = tv.td_vmm_plain(x, w, par, seed, **kw)
+        b.record()
+        torch.cuda.synchronize()
+        if not plain_out:
+            plain_out.append(out)
+        return a.elapsed_time(b)
+
+    plain = [plain_ms()]
+    t = in_turns("noise_loop", f"stage-0 conv2 lanes {chunk} x M {m0} K "
+                 f"{k0} N {n0_}", {
+                     "kernel": lambda: tv.td_vmm(x, w, par, seed, **kw),
+                     "singles": lambda: [tv.td_vmm(x[i], w, par[i],
+                                                   seed[i:i + 1], **kw)
+                                         for i in range(chunk)]},
+                 {"kernel": 5, "singles": 5})
+    plain.append(plain_ms())
+    t["plain_ms"] = statistics.median(plain)
+    b_ms, b_by = bound_ms(4 * (chunk * m0 * k0 + k0 * n0_ + chunk * m0 * n0_)
+                          + 8 * chunk + 8 * chunk,
+                          2 * chunk * m0 * k0 * n0_ * 4, "int8")
+    print(f"[noise_loop] stage-0 conv2 lanes: kernel {t['kernel_ms']:.4f} ms,"
+          f" {chunk} single launches {t['singles_ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms (event pair, before and after: "
+          f"{plain[0]:.4f}, {plain[1]:.4f}), bound {b_ms:.4f} ms ({b_by}), "
+          f"kernel at {b_ms / t['kernel_ms']:.1%} of it")
+    max_err = max(max_err, _lane_check(tv, "stage-0 conv2", x, w, par, seed,
+                                       kw, want=plain_out[0]))
+    rows.append(dict(name="td_vmm", route="cuda",
+                     source="src/repro_torch/csrc/td_vmm.cu",
+                     replaces="src/repro/kernels/td_vmm/td_vmm.py:110",
+                     max_abs_err=max_err, library_ms=None, ms=t["kernel_ms"],
+                     plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                     shape=f"noise_loop stage-0 conv2, lanes {chunk} x M "
+                           f"{m0} K {k0} N {n0_} bits 4/4, shared w",
+                     timed={"singles_ms": t["singles_ms"]}))
+    del x, w, plain_out
+    torch.cuda.empty_cache()
+
+    # 8. the Monte-Carlo chain check on the card
+    n_mc, n = conf["mc_draws"], n_chain
+    mu_a, sig_a = (float(v) for v in chain.chain_stats(
+        float(n), chain.cell_stats(4, 2.0)))
+    mgen = torch.Generator(device=dev).manual_seed(1)
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    errs = chain.simulate_chain_errors(mgen, n, 4, 2.0, n_mc, device=dev)
+    b.record()
+    torch.cuda.synchronize()
+    mu_e, sig_e = float(errs.mean()), float(errs.std())
+    print(f"[noise_loop] simulate_chain_errors n {n}, bits 4, R 2, n_mc "
+          f"{n_mc}: {a.elapsed_time(b):.2f} ms; mean {mu_e:.6f} (chain_stats "
+          f"{mu_a:.6f}), std {sig_e:.6f} ({sig_a:.6f})")
+    if abs(mu_e - mu_a) >= 5 * sig_a / math.sqrt(n_mc) or \
+            abs(sig_e - sig_a) / sig_a >= 0.05:
+        fail("simulate_chain_errors disagrees with chain_stats")
+
+
 def _span_report(prof, span: str, which: slice, side: str = "host") -> None:
     """Device time of the kernels that start inside the ranges of ``span``
     (the ranges picked by ``which``), by kernel name.  A span also shows up
@@ -1778,7 +2165,7 @@ def main() -> None:
     flush_l2(release=True)
     launches: dict = {}
     for phase in (phase_serve, phase_scheduler, phase_scheduler_scenario,
-                  phase_train):
+                  phase_train, lambda lc: phase_noise_loop(lc, rows)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         phase(launches)

@@ -16,4 +16,8 @@ design_grid   batched sweep engine: DesignGrid, Pareto, crossovers,
 design_space  the Figs. 9/11/12 comparison engine (size-1 grid wrappers)
 scenario      named scenario / technology-corner sweeps over the grid
 explorer      in-process explorer service: sweep cache and point memo
+noise_tolerance  Fig. 10 sigma_array_max search, scalar and batched
 """
+from repro_torch.core import noise_tolerance
+
+__all__ = ["noise_tolerance"]

@@ -13,8 +13,11 @@ The paper calibrates the mean to zero and requires
 SIGMA_CONFIDENCE * sigma_chain <= err_max.
 
 The memoized scalar helpers (`cell_stats`, `_var_coeffs_scalar`) compute
-on the CPU whatever device a sweep runs on, and cache python floats.  The
-Monte-Carlo check `simulate_chain_errors` is not ported yet (ROADMAP §1).
+on the CPU whatever device a sweep runs on, and cache python floats.
+`simulate_chain_errors` is the Monte-Carlo check the formulas are held
+to: it draws with a ``torch.Generator`` on ``device`` (None: CUDA), so its
+samples are torch's, not the reference's threefry stream; the two agree
+in distribution.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import math
 
 import torch
 
+from repro_torch import device as device_mod
 from repro_torch.core import cells
 from repro_torch.core import constants as C
 from repro_torch.core import fp
@@ -58,6 +62,13 @@ def cell_stats(bits: int, redundancy: float, vdd: float = C.VDD_NOM,
     evpv = fp.fsum(var * pxw, (-2, -1))
     vhm = fp.fsum(inl ** 2 * pxw, (-2, -1)) - mu ** 2
     return CellStats(mu=float(mu), evpv=float(evpv), vhm=float(vhm))
+
+
+def chain_stats(n, st: CellStats) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eq. 4-5: (mu_chain, sigma_chain) for chain length n (a float32
+    tensor of n's shape, on n's device)."""
+    n = f32(n)
+    return n * st.mu, fp.sqrt(n * (st.evpv + st.vhm))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,3 +179,41 @@ def sigma_max_exact() -> float:
     """Exact regime: SIGMA_CONFIDENCE * sigma <= ERR_EXACT_MAX (rounding
     kills everything below half an LSB)."""
     return C.ERR_EXACT_MAX / C.SIGMA_CONFIDENCE
+
+
+# ---------------------------------------------------------------------------
+# Monte-Carlo reference for the law-of-total-variance model: the simulation
+# the analytic formulas are validated against.
+# ---------------------------------------------------------------------------
+def simulate_chain_errors(gen: torch.Generator, n: int, bits: int,
+                          redundancy: float, n_mc: int,
+                          vdd: float = C.VDD_NOM,
+                          p_x_one: float = C.P_X_ONE,
+                          w_bit_sparsity: float = C.W_BIT_SPARSITY,
+                          lib: TechLib = DEFAULT_LIB,
+                          device=None) -> torch.Tensor:
+    """(n_mc,) chain error samples on ``device`` (None: CUDA), drawn with
+    ``gen`` (a generator of that device): per cell a Bernoulli x, a
+    categorical w over `cells.input_distribution`, and the cell error
+    INL(x, w) + N(0, Var(x, w))."""
+    dev = device_mod.resolve(device)
+    p_x, p_w = cells.input_distribution(bits, f32(p_x_one, dev),
+                                        f32(w_bit_sparsity, dev))
+    xs = (torch.rand((n_mc, n), generator=gen, device=dev)
+          < p_x[1]).to(torch.int64)
+    # categorical by the inverse of P(w)'s distribution function
+    cdf = torch.cumsum(p_w, 0)
+    u = torch.rand((n_mc, n), generator=gen, device=dev) * cdf[-1]
+    ws = torch.clamp(torch.searchsorted(cdf, u, right=True),
+                     max=2 ** bits - 1)
+    del u
+    cell = xs * 2 ** bits + ws
+    del xs, ws
+    inl = cells.inl_table(bits, f32(redundancy, dev), lib,
+                          device=dev).reshape(-1)
+    var = cells.cell_delay_variance(bits, f32(redundancy, dev),
+                                    f32(vdd, dev), lib).reshape(-1)
+    err = torch.randn((n_mc, n), generator=gen, device=dev) \
+        * torch.sqrt(var)[cell]
+    err += inl[cell]
+    return err.sum(-1)

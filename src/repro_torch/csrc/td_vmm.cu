@@ -69,6 +69,16 @@
 //   block route's for any q.
 // sigma, q and the seed are read from device memory, so they stay runtime
 // operands.  One call is one launch.
+//
+// The lane axis (the reference's td_vmm under jax.vmap: one probe of the
+// batched noise search, or one head of TD attention, a lane): both routes
+// take `lanes` on gridDim.z.  Lane l reads x at l*M*K, w at l*w_stride (0:
+// one w shared by every lane), params at 2*l and seed at l, and writes out
+// at l*M*N; on the split route its scratch is at l*n_seg*M*N and its
+// column-tile counters at l*N.  The offsets are 64-bit; the noise index
+// stays the per-lane ((b*n_seg+seg)*M+row)*N+col in uint32, as vmap leaves
+// the kernel body as it is.  So a lane equals a single-lane call with its
+// operands bit for bit, noise included.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -238,8 +248,16 @@ td_vmm_block(const int32_t* __restrict__ x, const int32_t* __restrict__ w,
              const float* __restrict__ params,
              const long long* __restrict__ seed_p, float* __restrict__ out,
              int M, int N, int K, int n_chain, int k_true, int bits_w,
-             int vec) {
+             int vec, long long w_stride) {
   constexpr int MI = block_mi(BITS_A);
+  {  // this block's lane
+    const long long lane = blockIdx.z;
+    x += lane * M * K;
+    w += lane * w_stride;
+    params += 2 * lane;
+    seed_p += lane;
+    out += lane * M * N;
+  }
   constexpr int HM = 16 * MI;                // rows of a warpgroup's half
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -452,9 +470,19 @@ td_vmm_split(const int32_t* __restrict__ x, const int32_t* __restrict__ w,
              const long long* __restrict__ seed_p,
              float* __restrict__ scratch, int* __restrict__ counters,
              float* __restrict__ out, int M, int N, int K, int n_chain,
-             int k_true, int bits_w, int vec) {
+             int k_true, int bits_w, int vec, long long w_stride) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int sm_last;
+  {  // this block's lane
+    const long long lane = blockIdx.z;
+    x += lane * M * K;
+    w += lane * w_stride;
+    params += 2 * lane;
+    seed_p += lane;
+    out += lane * M * N;
+    scratch += lane * gridDim.y * M * N;
+    counters += lane * N;
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int n0 = blockIdx.x * S_BN, nw0 = n0 + warp * 32;
@@ -623,7 +651,7 @@ template <int B>
 int launch(int route, cudaStream_t s, const int32_t* x, const int32_t* w,
            const float* params, const long long* seed, float* scratch,
            int* counters, float* out, int M, int N, int K, int n_chain,
-           int k_true, int bits_w, int vec) {
+           int k_true, int bits_w, int vec, int lanes, long long w_stride) {
   if (route == 0) {
     constexpr int BM = 2 * 16 * block_mi(B);
     const size_t smem = block_smem<B>();
@@ -634,9 +662,10 @@ int launch(int route, cudaStream_t s, const int32_t* x, const int32_t* w,
                            (int)smem);
       allowed = smem;
     }
-    dim3 grid((M + BM - 1) / BM, (N + B_BN - 1) / B_BN);
+    dim3 grid((M + BM - 1) / BM, (N + B_BN - 1) / B_BN, lanes);
     td_vmm_block<B><<<grid, B_THREADS, smem, s>>>(
-        x, w, params, seed, out, M, N, K, n_chain, k_true, bits_w, vec);
+        x, w, params, seed, out, M, N, K, n_chain, k_true, bits_w, vec,
+        w_stride);
   } else {
     const size_t smem = split_smem(n_chain);
     static size_t allowed = 0;
@@ -646,33 +675,43 @@ int launch(int route, cudaStream_t s, const int32_t* x, const int32_t* w,
                            (int)smem);
       allowed = smem;
     }
-    dim3 grid((N + S_BN - 1) / S_BN, max(1, (K + n_chain - 1) / n_chain));
+    dim3 grid((N + S_BN - 1) / S_BN, max(1, (K + n_chain - 1) / n_chain),
+              lanes);
     td_vmm_split<B><<<grid, S_THREADS, smem, s>>>(
         x, w, params, seed, scratch, counters, out, M, N, K, n_chain,
-        k_true, bits_w, vec);
+        k_true, bits_w, vec, w_stride);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (M, K) int32 and w (K, N) int32 signed codes, row-major; params f32
-// [sigma, tdc_q] and seed int64 (low 32 bits used) in device memory; out
-// (M, N) f32.  Contraction positions >= k_true are masked, so K need not
-// be a multiple of n_chain.  route 0 is the block route; route 1 the split
-// route (M <= 8), which takes a scratch buffer of n_seg * M * N f32 and N
-// int32 counters that are 0 (the first ceil(N / 128) are used, and left
-// 0).  Returns cudaGetLastError() after the launch.
+// `lanes` lanes of x (M, K) int32 and w (K, N) int32 signed codes,
+// row-major, lane after lane (w's lane stride `w_stride` elements: K * N,
+// or 0 for one w shared by every lane); per lane params f32 [sigma, tdc_q]
+// and seed int64 (low 32 bits used) in device memory; out (lanes, M, N)
+// f32.  Contraction positions >= k_true are masked, so K need not be a
+// multiple of n_chain.  route 0 is the block route; route 1 the split route
+// (M <= 8), which takes a scratch buffer of lanes * n_seg * M * N f32 and
+// lanes * N int32 counters that are 0 (the first ceil(N / 128) of each
+// lane's N are used, and left 0).  Returns cudaGetLastError() after the
+// launch.
 extern "C" int td_vmm_launch(const void* x, const void* w, const void* params,
                              const void* seed, void* out, void* scratch,
                              void* counters, int M, int N, int K, int n_chain,
                              int k_true, int bits_a, int bits_w, int route,
-                             void* stream) {
+                             int lanes, long long w_stride, void* stream) {
   if (route != 0 && (route != 1 || M > S_MP || !scratch || !counters))
     return (int)cudaErrorInvalidValue;
   if (n_chain < 1 || bits_a < 1 || bits_a > 8 || bits_w < 1 || bits_w > 8)
     return (int)cudaErrorInvalidValue;
+  if (lanes < 1 || lanes > 65535 || (w_stride != 0 &&
+                                     w_stride != (long long)K * N))
+    return (int)cudaErrorInvalidValue;
+  // 16-byte copies need every lane's rows 16-byte aligned: K and N
+  // multiples of 4 make the lane strides M * K and K * N multiples of 4
   const bool vec = K % 4 == 0 && N % 4 == 0 && n_chain % 4 == 0 &&
+                   (long long)M * K % 4 == 0 && w_stride % 4 == 0 &&
                    (uintptr_t)x % 16 == 0 && (uintptr_t)w % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
   auto xi = (const int32_t*)x;
@@ -685,7 +724,7 @@ extern "C" int td_vmm_launch(const void* x, const void* w, const void* params,
 #define TD_VMM_CASE(B)                                                      \
   case B:                                                                   \
     return launch<B>(route, s, xi, wi, pp, sp, sc, cn, op, M, N, K, n_chain, \
-                     k_true, bits_w, vec);
+                     k_true, bits_w, vec, lanes, w_stride);
   switch (bits_a) {
     TD_VMM_CASE(1) TD_VMM_CASE(2) TD_VMM_CASE(3) TD_VMM_CASE(4)
     TD_VMM_CASE(5) TD_VMM_CASE(6) TD_VMM_CASE(7) TD_VMM_CASE(8)

@@ -27,6 +27,16 @@ them from device memory.  Positions >= ``k_true`` are masked, so K need not
 be padded.  Codes must lie in their ranges (as `lsq_quantize_int` gives
 them): the kernel narrows them to one byte.  On CPU tensors the wrapper
 runs `td_vmm_plain`; on CUDA tensors it launches the kernel or raises.
+
+The lane axis (the reference's kernel under ``jax.vmap``: a probe of the
+batched noise search, a head of TD attention): x (P, M, K) with w (K, N)
+shared by every lane or (P, K, N) one a lane, ``params`` (P, 2) and
+``seed`` (P,) return (P, M, N), still in one launch (lanes on the grid's
+z axis).  Every lane keeps its own noise index ((b*n_seg+seg)*M+row)*N+col
+over its own M, so a lane equals a single-lane call with that lane's
+operands bit for bit, noise included.  The route is planned from the
+per-lane M.  The plain versions take lanes by looping the single-lane
+function.
 """
 from __future__ import annotations
 
@@ -69,8 +79,8 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("td_vmm").td_vmm_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
+            + [ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -88,20 +98,28 @@ def _zeroed_counters(n: int, device) -> torch.Tensor:
 
 
 def _check(x, w, params, seed, bits_a, bits_w, k_true):
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"td_vmm wants x (M, K) and w (K, N), got "
+    lanes = x.shape[0] if x.dim() == 3 else 1
+    if (x.dim() not in (2, 3) or w.dim() not in (2, x.dim())
+            or x.shape[-1] != w.shape[-2]
+            or (w.dim() == 3 and w.shape[0] != lanes)):
+        raise ValueError(f"td_vmm wants x (M, K) and w (K, N), or x (P, M, "
+                         f"K) and w (K, N) or (P, K, N), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if x.dtype != torch.int32 or w.dtype != torch.int32:
         raise TypeError(f"td_vmm wants int32 codes, got {x.dtype}, {w.dtype}")
-    if params.dtype != torch.float32 or params.numel() != 2:
-        raise TypeError("td_vmm params must be float32 [sigma, tdc_q]")
-    if seed.dtype != torch.int64 or seed.numel() != 1:
-        raise TypeError("td_vmm seed must be one int64 value")
+    if params.dtype != torch.float32 or params.numel() != 2 * lanes:
+        raise TypeError(f"td_vmm params must be float32 [sigma, tdc_q] for "
+                        f"each of {lanes} lane(s)")
+    if seed.dtype != torch.int64 or seed.numel() != lanes:
+        raise TypeError(f"td_vmm seed must be one int64 value for each of "
+                        f"{lanes} lane(s)")
+    if lanes > 65535:
+        raise ValueError(f"td_vmm takes at most 65535 lanes, got {lanes}")
     if not 1 <= bits_a <= 8 or not 1 <= bits_w <= 8:
         raise ValueError(f"bits_a, bits_w must be in 1..8, got "
                          f"{bits_a}, {bits_w}")
-    if not 0 <= k_true <= x.shape[1]:
-        raise ValueError(f"k_true={k_true} outside [0, {x.shape[1]}]")
+    if not 0 <= k_true <= x.shape[-1]:
+        raise ValueError(f"k_true={k_true} outside [0, {x.shape[-1]}]")
     devs = {t.device for t in (x, w, params, seed)}
     if len(devs) != 1:
         raise ValueError(f"td_vmm operands on several devices: {devs}")
@@ -110,10 +128,11 @@ def _check(x, w, params, seed, bits_a, bits_w, k_true):
 def td_vmm(x_int: torch.Tensor, w_int: torch.Tensor, params: torch.Tensor,
            seed: torch.Tensor, *, bits_a: int, bits_w: int, n_chain: int,
            k_true: int | None = None) -> torch.Tensor:
-    """Noisy bit-serial TD product of signed codes, (M, N) float32."""
+    """Noisy bit-serial TD product of signed codes, (M, N) float32, or
+    (P, M, N) for P lanes."""
     global launches
     if k_true is None:
-        k_true = x_int.shape[1]
+        k_true = x_int.shape[-1]
     _check(x_int, w_int, params, seed, bits_a, bits_w, k_true)
     if x_int.device.type == "cpu":
         return td_vmm_plain(x_int, w_int, params, seed, bits_a=bits_a,
@@ -122,26 +141,43 @@ def td_vmm(x_int: torch.Tensor, w_int: torch.Tensor, params: torch.Tensor,
         raise ValueError(f"td_vmm runs on cuda or cpu, not {x_int.device}")
     x = x_int.contiguous()
     w = w_int.contiguous()
-    m, k = x.shape
-    n = w.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m and n:
+    params = params.contiguous()
+    seed = seed.contiguous()                 # lane l reads seed + l
+    lanes = x.shape[0] if x.dim() == 3 else 1
+    m, k = x.shape[-2:]
+    n = w.shape[-1]
+    out = torch.empty(x.shape[:-1] + (n,), dtype=torch.float32,
+                      device=x.device)
+    if m and n and lanes:
         plan = td_vmm_plan(m, k, n, n_chain, bits_a)
         scratch = counters = None
         if plan.route == "split":
-            scratch = torch.empty((plan.n_seg, m, n), dtype=torch.float32,
-                                  device=x.device)
-            counters = _zeroed_counters(n, x.device)
+            scratch = torch.empty((lanes, plan.n_seg, m, n),
+                                  dtype=torch.float32, device=x.device)
+            counters = _zeroed_counters(lanes * n, x.device)
         rc = _kernel()(x.data_ptr(), w.data_ptr(), params.data_ptr(),
                        seed.data_ptr(), out.data_ptr(),
                        None if scratch is None else scratch.data_ptr(),
                        None if counters is None else counters.data_ptr(),
                        m, n, k, n_chain, k_true, bits_a, bits_w,
-                       int(plan.route == "split"),
+                       int(plan.route == "split"), lanes,
+                       k * n if w.dim() == 3 else 0,
                        build.stream_ptr(x.device))
         build.check(rc, "td_vmm")
         launches += 1
     return out
+
+
+def _by_lane(fn, x_int, w_int, params, seed, **kw) -> torch.Tensor:
+    """``fn`` over the lanes of a lane call, one single-lane call a lane,
+    stacked; a single-lane call as it is."""
+    if x_int.dim() == 2:
+        return fn(x_int, w_int, params, seed, **kw)
+    params = params.reshape(-1, 2)
+    seed = seed.reshape(-1)
+    return torch.stack([
+        fn(x_int[p], w_int[p] if w_int.dim() == 3 else w_int, params[p],
+           seed[p:p + 1], **kw) for p in range(x_int.shape[0])])
 
 
 def td_vmm_plain(x_int: torch.Tensor, w_int: torch.Tensor,
@@ -151,7 +187,13 @@ def td_vmm_plain(x_int: torch.Tensor, w_int: torch.Tensor,
     """The kernel's function in plain PyTorch, with the Pallas kernel's
     order of float operations (per segment: 2^b-weighted planes summed
     LSB first, then ``out += acc - side_sums``), so that at sigma = 0 it is
-    bit-exact with both kernels."""
+    bit-exact with both kernels.  Lanes loop the single-lane version."""
+    return _by_lane(_plain_one, x_int, w_int, params, seed, bits_a=bits_a,
+                    bits_w=bits_w, n_chain=n_chain, k_true=k_true)
+
+
+def _plain_one(x_int, w_int, params, seed, *, bits_a, bits_w, n_chain,
+               k_true):
     m, k = x_int.shape
     n = w_int.shape[1]
     if k_true is None:
@@ -205,7 +247,14 @@ def td_vmm_split_plain(x_int: torch.Tensor, w_int: torch.Tensor,
     computes its term from its own slice of the contraction into a scratch
     (n_seg, M, N) laid out as the kernel's, and the combine adds them in
     segment order onto k_true * ox * ow.  Bit-identical to `td_vmm_plain`,
-    noise included."""
+    noise included.  Lanes loop the single-lane version."""
+    return _by_lane(_split_plain_one, x_int, w_int, params, seed,
+                    bits_a=bits_a, bits_w=bits_w, n_chain=n_chain,
+                    k_true=k_true, plan=plan)
+
+
+def _split_plain_one(x_int, w_int, params, seed, *, bits_a, bits_w,
+                     n_chain, k_true, plan):
     m, k = x_int.shape
     n = w_int.shape[1]
     if k_true is None:

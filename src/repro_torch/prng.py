@@ -1,6 +1,8 @@
-"""PRNG keys of the model's key tree, as host integers (port of the two
-parts of `jax.random` that the reference's train path uses: ``key(seed)``
-and ``fold_in``, for JAX's default threefry2x32 implementation).
+"""PRNG keys of the model's key tree, as host integers (port of the parts
+of `jax.random` that the reference's train path and noise search use:
+``key(seed)``, ``fold_in`` and ``split``, for JAX's default threefry2x32
+implementation with ``jax_threefry_partitionable`` on, the default since
+JAX 0.5).
 
 A key is a pair of uint32 words ``(k0, k1)``, the reference's
 ``jax.random.key_data``.  Keys depend only on the step, microbatch, layer
@@ -50,3 +52,12 @@ def fold_in(k: tuple[int, int], data: int) -> tuple[int, int]:
     if not 0 <= data <= MASK32:
         raise ValueError(f"fold_in data {data} is not a uint32")
     return threefry2x32(k, 0, int(data))
+
+
+def split(k: tuple[int, int], n: int = 2) -> list[tuple[int, int]]:
+    """``jax.random.split(k, n)`` as n keys.  With threefry partitionable,
+    key i is threefry of the 64-bit counter i, as its two words (hi, lo),
+    under k: for i < 2^32 that is ``fold_in(k, i)``."""
+    if n < 0:
+        raise ValueError(f"split into {n} keys")
+    return [threefry2x32(k, i >> 32, i & MASK32) for i in range(int(n))]

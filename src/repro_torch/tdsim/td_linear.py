@@ -15,6 +15,11 @@ run the lsq_quant kernel in the backward only.  Mode "quant" is
 seed is ``derive_seed(key)``.  With ``key=None`` it is
 ``derive_seed((0, 0))``: the reference seeds every keyless TD matmul from
 ``PRNGKey(0)``, and the serve steps pass no key.
+
+`td_matmul_lanes` / `linear_lanes` are the reference's ``jax.vmap`` of
+``_td_matmul_ste`` over P lanes (the batched noise search's probes): each
+lane its own x, sigma, tdc_q and seed over one w (or one w a lane), in one
+td_vmm launch.  They are forward-only.
 """
 from __future__ import annotations
 
@@ -119,6 +124,33 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, s_a, s_w, pol: TDPolicy,
     return _TDMatmulSTE.apply(x, w, s_a, s_w, pol, seed)
 
 
+def td_matmul_lanes(x: torch.Tensor, w: torch.Tensor, s_a, s_w,
+                    pol: TDPolicy, sigma: torch.Tensor, tdc_q: torch.Tensor,
+                    seeds: torch.Tensor) -> torch.Tensor:
+    """P lanes of the td-mode matmul, forward only: x (P, ..., K), w (K, N)
+    or (P, K, N), ``sigma`` and ``tdc_q`` (P,) and ``seeds`` (P,) int64
+    (derived uint32 seeds) on x's device.  Quantizes and dequantizes as
+    `_TDMatmulSTE.forward`, so lane p equals ``td_matmul`` of lane p's x at
+    its sigma, tdc_q and seed bit for bit."""
+    x_int = lsq.lsq_quantize_int(x, s_a, pol.bits_a, signed=True)
+    return td_codes_lanes(x_int, w, s_a, s_w, pol, sigma, tdc_q, seeds,
+                          torch.promote_types(x.dtype, w.dtype))
+
+
+def td_codes_lanes(x_int: torch.Tensor, w: torch.Tensor, s_a, s_w,
+                   pol: TDPolicy, sigma: torch.Tensor, tdc_q: torch.Tensor,
+                   seeds: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`td_matmul_lanes` from x's codes (``lsq_quantize_int(x, s_a)``),
+    for a caller that frees x before the launch; ``dtype`` is the result's
+    (that of x and w)."""
+    if pol.mode != "td":
+        raise ValueError(f"td_matmul_lanes runs td mode, not {pol.mode!r}")
+    w_int = lsq.lsq_quantize_int(w, s_w, pol.bits_w, signed=True)
+    y_int = td_ops.td_vmm_lanes(x_int, w_int, pol, sigma, tdc_q, seeds)
+    y = y_int * (torch.clamp(s_a, min=1e-8) * torch.clamp(s_w, min=1e-8))
+    return y.to(dtype)
+
+
 def linear(params: dict, x: torch.Tensor, pol: TDPolicy,
            key=None) -> torch.Tensor:
     """Linear layer dispatching on the policy.  params holds 'w' (K, N),
@@ -127,6 +159,24 @@ def linear(params: dict, x: torch.Tensor, pol: TDPolicy,
         y = x @ params["w"]
     else:
         y = td_matmul(x, params["w"], params["s_a"], params["s_w"], pol, key)
+    if "b" in params:
+        y = y + params["b"]
+    return y
+
+
+def linear_lanes(params: dict, x: torch.Tensor, pol: TDPolicy,
+                 sigma: torch.Tensor, tdc_q: torch.Tensor,
+                 seeds: torch.Tensor) -> torch.Tensor:
+    """`linear` over P lanes of x (P, ..., K), forward only: in td mode
+    `td_matmul_lanes` with a (sigma, tdc_q, seed) a lane; the other modes
+    have no noise, so they are `linear` of x as it is (``sigma``,
+    ``tdc_q`` and ``seeds`` are not read)."""
+    if pol.mode == "td":
+        y = td_matmul_lanes(x, params["w"], params["s_a"], params["s_w"],
+                            pol, sigma, tdc_q, seeds)
+    else:
+        y = td_matmul(x, params["w"], params.get("s_a"), params.get("s_w"),
+                      pol)
     if "b" in params:
         y = y + params["b"]
     return y
