@@ -24,7 +24,8 @@
    main paths' shapes (qwen3-8b at full width: serve batch 4, prompt 128;
    the engine's admissions over its prompt bucket and its decode steps at
    its capacity, with ragged per-row lengths; train microbatch 1 x 128
-   and every weight of the 4-layer model), at
+   and every weight of the 4-layer model; lsq_quant also at the noise
+   loops' f32 shapes, ResNet20's and granite-8b's), at
    the attention kernels' edge cases (query tiles, split chunks, masked
    rows) and at one long shape each (flash_attn at train_4k's microbatch,
    Sq 4096; decode_gqa at decode_32k's length, S 32768), holding the
@@ -66,10 +67,33 @@
    version and to single-lane launches bit for bit (noise included) and
    times it at the stage-0 conv2 at 13 lanes, and checks
    `simulate_chain_errors` (1e6 x 576 cells) against `chain_stats`;
-6. profiles a shorter serve run, a short scheduler run (4 requests,
-   capacity 4) and a td train step under torch.profiler and prints where
-   the device time goes, attention's device time per launch included; a
-   profiler failure fails the run.
+   then runs TD attention (`phase_td_attention`): full-width qwen3-8b
+   served as above with ``--td-attn td`` and again with ``quant`` (36
+   layers; QK^T and PV are two td_vmm lane launches a layer a step over
+   B x Hq = 128 lanes, one w a lane, and flash_attn and decode_gqa must
+   not run) and trained as above with ``--td-attn td``; holds those lane
+   calls at the paths' own shapes (prefill, decode, training) to the plain
+   version and to single-lane launches bit for bit at the solved and at a
+   heterogeneous per-head policy and times the prefill and decode ones;
+   the STE gradient against the clean-attention gradient bit for bit; the
+   reference bench's sigma check and a clean head beside a noisy one at
+   full head widths; and the smoke model's td-attention serve on the card
+   against the CPU; then the LM per-layer noise sweep
+   (`phase_lm_noise_sweep`) on full-width granite-8b cut to 4 layers, f32:
+   60 quant-mode SGD steps, the per-layer batched search
+   (`transformer.forward_lanes`, 52 probes in 4 chunks of 13, 7 td_vmm
+   lane launches a layer a chunk), lanes equal to single forwards, a
+   noisy lane's logits apart from the clean lane's, and the layer-0
+   scalar search equal to the batched one, the network sweep, the
+   per-layer policy solve and its file read back by ``--td-per-layer``;
+   then holds the sweep's kernels to their plain versions at its shapes
+   (td_vmm's 13 lanes of M 256 over a shared w at every dense's K and N,
+   bit for bit; flash_attn's f32 path at batch 8, 24 and 104);
+6. profiles a shorter serve run (plain, then with ``--td-attn td``, and
+   counts each one's host syncs a step in an untraced rerun), a
+   short scheduler run (4 requests, capacity 4) and a td train step under
+   torch.profiler and prints where the device time goes, attention's
+   device time per launch included; a profiler failure fails the run.
 
 Prints one JSON line describing every kernel, then, last, the result line
 `{"ok": true, "device": {...}}`.  Exits non-zero, printing no result, on
@@ -1078,8 +1102,9 @@ def phase_lsq_quant(rows: list):
     noise loop's f32 shapes (resnet20-cifar's im2col patches of the stem
     and a stage-0 conv at 512 images, its smallest and largest conv
     weights and the head's weight); step sizes with exact .5 ties, a
-    random one and one below the 1e-8 floor.  Must be bit-exact
-    (max_abs_err 0)."""
+    random one and one below the 1e-8 floor; and the LM sweep's f32
+    shapes (granite-8b's weights, lm_head included, and a step's two
+    activation widths).  Must be bit-exact (max_abs_err 0)."""
     import torch
     from repro_torch.kernels.lsq_quant import lsq_quant as lq
     from repro_torch.kernels.lsq_quant.ref import lsq_quant_ref
@@ -1094,11 +1119,22 @@ def phase_lsq_quant(rows: list):
                   ("resnet stem weight", (27, 16)),
                   ("resnet s2 conv weight", (576, 64)),
                   ("resnet head weight", (64, 10))]
+    # the LM sweep's f32 QAT (granite-8b, batch 8 x 32): its weights and
+    # the activations of a step
+    g_d, g_f, g_v = 4096, 14336, 49152
+    lm_sweep = [("granite attn.wq/wo", (g_d, g_d)),
+                ("granite attn.wk/wv", (g_d, 1024)),
+                ("granite mlp.wi/wg", (g_d, g_f)),
+                ("granite mlp.wo", (g_f, g_d)),
+                ("granite lm_head", (g_d, g_v)),
+                ("granite act d_model", (8, 32, g_d)),
+                ("granite act d_ff", (8, 32, g_f))]
     cases = [(0.25, -8, 7), (0.0371, 0, 255), (1e-9, -8, 7)]
     gen = torch.Generator(device="cuda").manual_seed(3)
     n_cases = 0
     max_err = 0.0
-    for dtype, dtype_shapes in ((torch.float32, shapes + noise_loop),
+    for dtype, dtype_shapes in ((torch.float32,
+                                 shapes + noise_loop + lm_sweep),
                                 (torch.bfloat16, shapes)):
         for label, shape in dtype_shapes:
             for s_val, qn, qp in cases:
@@ -1123,10 +1159,10 @@ def phase_lsq_quant(rows: list):
                           f"s={s_val} [{qn}, {qp}]: differs, max |kernel - "
                           f"plain| {err:g}")
                 del x, ties, got, want
-    print(f"[lsq_quant] {n_cases} cases ({len(shapes)} shapes x 2 dtypes "
-          f"and {len(noise_loop)} noise-loop shapes in f32, x {len(cases)} "
-          f"step sizes): max |kernel - plain| {max_err:g} (tolerance 0, bit "
-          f"patterns compared)")
+    print(f"[lsq_quant] {n_cases} cases ({len(shapes)} shapes x 2 dtypes, "
+          f"{len(noise_loop)} noise-loop and {len(lm_sweep)} LM-sweep shapes "
+          f"in f32, x {len(cases)} step sizes): max |kernel - plain| "
+          f"{max_err:g} (tolerance 0, bit patterns compared)")
     if max_err != 0.0:
         fail("lsq_quant is not bit-exact with its plain version")
 
@@ -1688,7 +1724,8 @@ LANE_CHECKS = [("stem", 512 * 32 * 32, 27, 16),
                ("s2 conv2", 512 * 8 * 8, 576, 64), ("head", 512, 64, 10)]
 
 
-def _lane_check(tv, label, x, w, params, seed, kw, want=None) -> float:
+def _lane_check(tv, label, x, w, params, seed, kw, want=None,
+                tag="noise_loop") -> float:
     """A lane launch against its plain version (``want``, computed when
     None) and against one single-lane launch a lane: bit for bit, noise
     included.  Returns max |kernel - plain| (0)."""
@@ -1704,7 +1741,7 @@ def _lane_check(tv, label, x, w, params, seed, kw, want=None) -> float:
     plan = tv.td_vmm_plan(x.shape[1], x.shape[2], w.shape[-1], kw["n_chain"],
                           kw["bits_a"])
     w_kind = "per lane" if w.dim() == 3 else "shared"
-    print(f"[noise_loop] lanes {label}: P={x.shape[0]} M={x.shape[1]} "
+    print(f"[{tag}] lanes {label}: P={x.shape[0]} M={x.shape[1]} "
           f"K={x.shape[2]} N={w.shape[-1]} w {w_kind} "
           f"bits {kw['bits_a']}/{kw['bits_w']}, route {plan.route}: max "
           f"|kernel - plain| {err:g}, lanes == single launches "
@@ -2037,6 +2074,611 @@ def phase_noise_loop(launches: dict, rows: list):
         fail("simulate_chain_errors disagrees with chain_stats")
 
 
+# ---------------------------------------------------------------------------
+# TD attention (`tdsim/td_attention.py`) on full-width qwen3-8b: serve at
+# SERVE's settings, 36 layers, with --td td --td-attn td and then quant;
+# train at TRAIN's settings and cut with --td-attn td.  QK^T and PV are two
+# td_vmm lane calls a layer a step over B * Hq lanes, one w a lane; neither
+# flash_attn nor decode_gqa runs.  The lane calls at the path's own shapes
+# (label, lanes, M, K, N): prefill over the whole 144-token cache, decode
+# one query row, training's microbatch of 1 x 128 without a cache.
+TD_ATTN_LANES = [("prefill QK^T", 128, 128, 128, 144),
+                 ("prefill PV", 128, 128, 144, 128),
+                 ("decode QK^T", 128, 1, 128, 144),
+                 ("decode PV", 128, 1, 144, 128),
+                 ("train QK^T", 32, 128, 128, 128),
+                 ("train PV", 32, 128, 128, 128)]
+TD_ATTN_TIMED = ("prefill QK^T", "prefill PV", "decode QK^T", "decode PV")
+# `benchmarks/bench_attention._td_sigma_smoke` at qwen3-8b's head widths
+TD_ATTN_BENCH = dict(batch=2, seq=128, sigmas=(0.0, 1.0, 4.0), max_err=0.05)
+
+
+def _attn_lane_params(pols, lanes: int, hetero: bool):
+    """(lanes, 2) float32 [sigma, q] of lane b * Hq + h: head h's solved
+    policy, or with ``hetero`` a sigma and q that differ from head to
+    head (0 on every fourth head)."""
+    import torch
+    hq = len(pols)
+    rows = []
+    for lane in range(lanes):
+        h = lane % hq
+        if hetero:
+            rows.append([0.5 * (h % 4) * (1 + h // 8), 1.0 + h % 3])
+        else:
+            rows.append([pols[h].sigma_chain, float(pols[h].tdc_q)])
+    return torch.tensor(rows, dtype=torch.float32, device="cuda")
+
+
+def _attn_lane_seeds(lanes: int, salt: int = 0):
+    """Contiguous lane seeds as td_attention derives them: hash32(seed ^
+    lane ^ salt), seed = derive_seed((0, 0))."""
+    import torch
+    from repro_torch.kernels.td_vmm import ref as td_ref
+    lane = torch.arange(lanes, dtype=torch.int64, device="cuda")
+    return td_ref.hash32(lane ^ td_ref.derive_seed((0, 0)) ^ salt)
+
+
+def phase_td_attention(launches: dict, rows: list):
+    """TD attention's main paths (serve twice, train), each counted; then
+    its lane calls against the plain version and single launches at the
+    paths' shapes, timed; the reference bench's sigma check and a clean
+    head beside a noisy one at full head widths; the STE gradient against
+    the clean-attention gradient; the smoke model's td-attention serve on
+    the card against the CPU."""
+    import torch
+    import repro_torch.configs as cfgs
+    from repro_torch.configs.base import ShapeCfg, TDExecCfg, TrainCfg
+    from repro_torch.kernels.flash_attn.ops import _masked_attn, \
+        flash_attention
+    from repro_torch.launch import serve, steps, td_cli, train
+    from repro_torch.models import common, get_api
+    from repro_torch.tdsim.policy import NetworkPolicy, TDPolicy
+    from repro_torch.tdsim.td_attention import td_attention
+
+    mods = kernel_modules()
+    tv = mods["td_vmm"]
+    t_phase = time.monotonic()
+    heads = None
+
+    # 1. serve, 36 layers: --td-attn td, then quant
+    for mode in ("td", "quant"):
+        arch = td_cli.apply_td_args(cfgs.get("qwen3-8b"), "td",
+                                    td_attn=mode)
+        cfg = arch.model
+        pols = common.resolve_arch_policy(arch, device="cuda").attn
+        heads = heads or pols
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for m in mods.values():
+            m.launches = 0
+        stats: dict = {}
+        t0 = time.monotonic()
+        ids = serve.run(arch, SERVE["batch"], SERVE["prompt_len"],
+                        SERVE["gen"], seed=0, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = {n: m.launches for n, m in mods.items()}
+        path = f"serve_td_attn_{mode}"
+        p0 = pols[0]
+        print(f"[td_attention] serve qwen3-8b --td td --td-attn {mode}, "
+              f"{cfg.n_layers} layers, batch {SERVE['batch']}, prompt "
+              f"{SERVE['prompt_len']}, gen {SERVE['gen']}: wall {wall:.1f} "
+              f"s (init included), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; head "
+              f"policy ({len(pols)} heads, all equal "
+              f"{all(p == p0 for p in pols)}): mode {p0.mode}, bits "
+              f"{p0.bits_a}/{p0.bits_w}, n_chain {p0.n_chain}, R "
+              f"{p0.redundancy}, q {p0.tdc_q}, sigma_chain "
+              f"{p0.sigma_chain!r}")
+        print(f"[td_attention] serve {mode}: prefill "
+              f"{stats['prefill_ms']:.1f} ms; decode median "
+              f"{statistics.median(stats['decode_ms']):.1f} ms/token (all: "
+              f"{[round(t, 1) for t in stats['decode_ms']]})")
+        ids_cpu = ids.cpu()
+        print(f"[td_attention] serve {mode}: tokens[0] "
+              f"{ids_cpu[0].tolist()}")
+        # every step (prefill and gen - 1 decodes): 7 denses a layer,
+        # lm_head, and QK^T and PV a layer
+        check_launches(path, counts, {
+            "td_vmm": (9 * cfg.n_layers + 1) * SERVE["gen"],
+            "flash_attn": 0, "decode_gqa": 0, "lsq_quant": 0})
+        if ids_cpu.shape != (SERVE["batch"], SERVE["gen"]) or \
+                int(ids_cpu.min()) < 0 or int(ids_cpu.max()) >= cfg.vocab:
+            fail(f"serve td-attn {mode}: bad tokens {ids_cpu.shape}")
+        launches[path] = counts
+        del ids
+
+    # 2. train, 4 layers, --td-attn td
+    shape = ShapeCfg("cli", TRAIN["seq"], TRAIN["batch"], "train")
+    arch = td_cli.apply_td_args(train_arch("td"), None, td_attn="td")
+    cfg = arch.model
+    n_micro = arch.microbatches_for(shape.name)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods.values():
+        m.launches = 0
+    stats = {}
+    t0 = time.monotonic()
+    _, losses = train.run(arch, shape, TRAIN["td_steps"], None, log_every=1,
+                          seed=0, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = {n: m.launches for n, m in mods.items()}
+    step_ms = [round(t * 1e3, 1) for t in stats["step_s"]]
+    print(f"[td_attention] train qwen3-8b --td td --td-attn td, "
+          f"{cfg.n_layers} layers, batch {shape.global_batch} x "
+          f"{shape.seq_len} in {n_micro} microbatches, remat "
+          f"{arch.train.remat}: wall {wall:.1f} s (init included), peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; step "
+          f"ms {step_ms}, median after the first "
+          f"{statistics.median(step_ms[1:]):.1f} ms; losses {losses}; grad "
+          f"norms {stats['grad_norm']}")
+    per_step = train_expected(cfg, n_micro, "td")
+    # attention: QK^T and PV in the forward and again in remat's rerun
+    per_step.update(td_vmm=per_step["td_vmm"] + n_micro * 4 * cfg.n_layers,
+                    flash_attn=0)
+    check_launches("train_td_attn", counts,
+                   {n: c * TRAIN["td_steps"] for n, c in per_step.items()})
+    if len(losses) != TRAIN["td_steps"] or not all(
+            math.isfinite(x) for x in losses + stats["grad_norm"]):
+        fail(f"train td-attn: losses {losses}, grad norms "
+             f"{stats['grad_norm']}")
+    launches["train_td_attn"] = counts
+    torch.cuda.empty_cache()
+
+    # 3. the STE gradient is the clean-attention gradient, at one layer's
+    # shapes in training (microbatch 1 x 128, bf16)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sq = TRAIN["seq"]
+    qkv = [torch.randn((1, sq, h, hd), generator=gen, device="cuda").to(
+        torch.bfloat16) for h in (hq, hkv, hkv)]
+    g = torch.randn((1, sq, hq, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kv_len = torch.full((1,), sq, dtype=torch.int32, device="cuda")
+    q_off = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    grads = []
+    for fn in (lambda a, b, c: td_attention(a, b, c, heads, (5, 6),
+                                            causal=True),
+               lambda a, b, c: _masked_attn(a, b, c, kv_len, q_off, True)):
+        leaves = [t.clone().requires_grad_() for t in qkv]
+        fn(*leaves).backward(g)
+        grads.append([t.grad for t in leaves])
+    same = all(_bits_equal(a, b) for a, b in zip(*grads))
+    print(f"[td_attention] STE gradient at B 1, S {sq}, {hq}/{hkv} heads "
+          f"of {hd}, bf16: equal to the clean-attention gradient bit for "
+          f"bit {same}")
+    if not same:
+        fail("td_attention's gradient differs from the clean attention's")
+
+    # 4. the lane calls at the paths' shapes: kernel = plain = singles
+    kw = dict(bits_a=heads[0].bits_a, bits_w=heads[0].bits_w,
+              n_chain=heads[0].n_chain)
+    max_err = 0.0
+    for label, lanes, m, k, n in TD_ATTN_LANES:
+        x = _codes(gen, (lanes, m, k), kw["bits_a"])
+        w = _codes(gen, (lanes, k, n), kw["bits_w"])
+        seed = _attn_lane_seeds(lanes)
+        for hetero in (False, True):
+            par = _attn_lane_params(heads, lanes, hetero)
+            which = "heterogeneous heads" if hetero else "solved heads"
+            max_err = max(max_err, _lane_check(
+                tv, f"{label}, {which}", x, w, par, seed, kw,
+                tag="td_attention"))
+
+    # 5. the prefill and decode lane calls timed: kernel, 128 single
+    # launches, plain (an event pair: its launches pace it)
+    print(f"[td_attention] card before timing: {gpu_state()}")
+    for label, lanes, m, k, n in TD_ATTN_LANES:
+        if label not in TD_ATTN_TIMED:
+            continue
+        x = _codes(gen, (lanes, m, k), kw["bits_a"])
+        w = _codes(gen, (lanes, k, n), kw["bits_w"])
+        seed = _attn_lane_seeds(lanes)
+        par = _attn_lane_params(heads, lanes, False)
+
+        def plain_ms():
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            tv.td_vmm_plain(x, w, par, seed, **kw)
+            b.record()
+            torch.cuda.synchronize()
+            return a.elapsed_time(b)
+
+        plain = [plain_ms()]
+        t = in_turns("td_attention", f"{label} lanes {lanes} x M {m} K {k} "
+                     f"N {n}", {
+                         "kernel": lambda: tv.td_vmm(x, w, par, seed, **kw),
+                         "singles": lambda: [
+                             tv.td_vmm(x[i], w[i], par[i], seed[i:i + 1],
+                                       **kw) for i in range(lanes)]},
+                     {"kernel": 20, "singles": 5})
+        plain.append(plain_ms())
+        t["plain_ms"] = statistics.median(plain)
+        b_ms, b_by = bound_ms(
+            4 * lanes * (m * k + k * n + m * n) + 16 * lanes,
+            2 * lanes * m * k * n * kw["bits_a"], "int8")
+        plan = tv.td_vmm_plan(m, k, n, kw["n_chain"], kw["bits_a"])
+        print(f"[td_attention] {label} lanes ({plan.route} route, "
+              f"{plan.n_seg} segment(s)): kernel {t['kernel_ms']:.5f} ms, "
+              f"{lanes} single launches {t['singles_ms']:.5f} ms, plain "
+              f"{t['plain_ms']:.4f} ms (event pair, before and after: "
+              f"{plain[0]:.4f}, {plain[1]:.4f}), bound {b_ms:.5f} ms "
+              f"({b_by}), kernel at {b_ms / t['kernel_ms']:.1%} of it")
+        rows.append(dict(
+            name="td_vmm", route="cuda", source="src/repro_torch/csrc/td_vmm.cu",
+            replaces="src/repro/kernels/td_vmm/td_vmm.py:110",
+            max_abs_err=max_err, library_ms=None, ms=t["kernel_ms"],
+            plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            shape=f"td_attention {label}, lanes {lanes} x M {m} K {k} N {n} "
+                  f"bits {kw['bits_a']}/{kw['bits_w']}, w a lane, solved "
+                  f"heads",
+            timed={"singles_ms": t["singles_ms"]}))
+        del x, w
+
+    # 6. the reference bench's sigma check, and a clean head beside a
+    # noisy one, at qwen3-8b's head widths (f32)
+    conf = TD_ATTN_BENCH
+    b, t_len = conf["batch"], conf["seq"]
+    q, k, v = (torch.randn((b, t_len, h, hd), generator=gen, device="cuda")
+               for h in (hq, hkv, hkv))
+    clean = flash_attention(q, k, v, causal=True)
+    base = TDPolicy(mode="td", bits_a=8, bits_w=8, n_chain=hd)
+    errs = [float((td_attention(q, k, v, base.replace(sigma_chain=sg),
+                                (0, 2), causal=True) - clean).abs().mean())
+            for sg in conf["sigmas"]]
+    print(f"[td_attention] bench sigma check, B {b}, T {t_len}, {hq}/{hkv} "
+          f"heads of {hd}, 8 bits: mean |td - flash_attention| at sigma "
+          f"{list(conf['sigmas'])}: {errs} (sigma 0 under "
+          f"{conf['max_err']}, the last not below it)")
+    if not (errs[0] < conf["max_err"] and errs[-1] >= errs[0]):
+        fail(f"td_attention's sigma check: {errs}")
+    o_clean = td_attention(q, k, v, base, (0, 2))
+    o_het = td_attention(q, k, v, tuple(base.replace(
+        sigma_chain=5.0 if h == 2 else 0.0) for h in range(hq)), (0, 2))
+    clean_equal = all(torch.equal(o_het[:, :, h], o_clean[:, :, h])
+                      for h in range(hq) if h != 2)
+    delta = float((o_het[:, :, 2] - o_clean[:, :, 2]).abs().max())
+    print(f"[td_attention] head 2 at sigma 5, the rest clean: clean heads "
+          f"bit-identical to the all-clean run {clean_equal}, head 2 moved "
+          f"by {delta:.4g}")
+    if not clean_equal or not delta > 1e-3:
+        fail("td_attention: per-head noise leaks or does not act")
+    del q, k, v, clean, o_clean, o_het
+
+    # 7. the smoke model's td-attention serve, f32, sigma 0 (the noise's
+    # log and cos are not bit-equal across devices): card against CPU
+    arch = cfgs.get_smoke("qwen3-8b").replace(
+        td=TDExecCfg(mode="td", n_chain=48),
+        td_attn=TDExecCfg(mode="td", n_chain=48),
+        train=TrainCfg(compute_dtype="float32"))
+    scfg = arch.model
+    lay = TDPolicy(mode="td", n_chain=48)
+    pol = NetworkPolicy(layers=(lay,) * scfg.n_layers, top=lay, attn=(
+        TDPolicy(mode="td", n_chain=scfg.hd),) * scfg.n_heads)
+    params = get_api(scfg)["init"](0, scfg, pol, device="cpu")
+    toks = torch.from_numpy(serve.prompts(1, 2, 8, scfg.vocab))
+    sshape = ShapeCfg("serve", 14, 2, "decode")
+    solve = common.resolve_arch_policy
+    common.resolve_arch_policy = lambda a, device=None: pol
+    try:
+        pre = steps.build_prefill_step(arch, sshape)
+        srv = steps.build_serve_step(arch, sshape)
+    finally:
+        common.resolve_arch_policy = solve
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        with torch.inference_mode():
+            logits, state = pre(p, {"tokens": toks.to(dev)})
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            out = [tok]
+            for _ in range(5):
+                tok, state = srv(p, tok, state)
+                out.append(tok)
+        res[dev] = (logits.float().cpu(), torch.cat(out, 1).cpu())
+    same = bool(torch.equal(res["cpu"][1], res["cuda"][1]))
+    err = float((res["cpu"][0] - res["cuda"][0]).abs().max())
+    print(f"[td_attention] smoke model --td-attn td at sigma 0, f32, card vs "
+          f"CPU: tokens equal {same}, max |prefill logit diff| {err:.3e}")
+    if not same:
+        fail("the smoke model's td-attention serve on the card disagrees "
+             "with the CPU run")
+    print(f"[td_attention] the phase's wall {time.monotonic() - t_phase:.1f} "
+          f"s")
+
+
+# ---------------------------------------------------------------------------
+# The LM per-layer noise sweep (`benchmarks/bench_noise_tolerance.
+# _lm_eval_fns` and the LM part of its `run`) on full-width granite-8b cut
+# to 4 layers (4 sites), f32: SyntheticStream(seq 32, batch 8), 60 quant 4/4
+# plain-SGD steps at lr 0.15 under keys fold_in(key, i); eval on batch(999),
+# next-token top-1; the base policy td 4/4, n_chain d_model, sigma 0, q 1;
+# sigmas 0.25-8, 2 repeats, chunks of 13; the per-layer sweep, the network
+# sweep and `solve_network_policies` of the per-layer sigma_max, written in
+# the bench's JSON shape for ``--td-per-layer @file``.
+LM_SWEEP = dict(layers=4, seq_len=32, global_batch=8, steps=60, lr=0.15,
+                sigmas=(0.25, 0.5, 1.0, 2.0, 4.0, 8.0), n_repeats=2,
+                chunk=13, seed=0, eval_step=999)
+LM_POLICIES = ROOT / "build" / "noise_tolerance" / \
+    "per_layer_policies_granite-8b.json"
+
+
+def phase_lm_noise_sweep(launches: dict):
+    """The LM sweep's path, counted: QAT, the per-layer batched search
+    (`transformer.forward_lanes`: a chunk's 13 probes as lanes, 7 td_vmm
+    lane launches a layer a chunk), the site-0 scalar search, the network
+    sweep, the policy solve and its file; lanes = single forwards bit for
+    bit."""
+    import numpy as np
+    import torch
+    import repro_torch.configs as cfgs
+    from repro_torch import prng
+    from repro_torch.configs.base import TDExecCfg
+    from repro_torch.core import noise_tolerance as nt
+    from repro_torch.data.synthetic import DataCfg, SyntheticStream
+    from repro_torch.launch import td_cli
+    from repro_torch.models import get_api
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim.adamw import tree_leaves_with_path
+    from repro_torch.tdsim.policy import (NetworkPolicy, TDPolicy,
+                                          quant_policy,
+                                          solve_network_policies)
+
+    conf, dev = LM_SWEEP, "cuda"
+    cfg = dataclasses.replace(cfgs.get("granite-8b").model,
+                              n_layers=conf["layers"])
+    if (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab) != \
+            (4096, 32, 8, 14336, 49152):
+        fail(f"granite-8b widths {cfg}")
+    n_l = cfg.n_layers
+    api = get_api(cfg)
+    pol_q = quant_policy(4, 4)
+    key = prng.key(conf["seed"])
+    sigmas, reps, chunk = conf["sigmas"], conf["n_repeats"], conf["chunk"]
+    per = len(sigmas) * reps + 1
+    mods = kernel_modules()
+    tv = mods["td_vmm"]
+    for m in mods.values():
+        m.launches = 0
+    t_phase = time.monotonic()
+
+    # 1. brief QAT, quant 4/4, plain SGD
+    params = api["init"](conf["seed"], cfg, pol_q, device=dev)
+    stream = SyntheticStream(DataCfg(vocab=cfg.vocab, seq_len=conf["seq_len"],
+                                     global_batch=conf["global_batch"]))
+
+    def on_card(hb):
+        return {n: torch.from_numpy(hb[n]).to(dev) for n in ("tokens",
+                                                             "labels")}
+
+    leaves = [t for _, t in tree_leaves_with_path(params)]
+    for t in leaves:
+        t.requires_grad_(True)
+    losses, step_ms = [], []
+    for i in range(conf["steps"]):
+        t0 = time.perf_counter()
+        loss, _ = api["train_loss"](params, on_card(stream.batch(i)), cfg,
+                                    pol_q, prng.fold_in(key, i))
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for t, g in zip(leaves, grads):
+                t -= conf["lr"] * g
+        losses.append(float(loss.detach()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    for t in leaves:
+        t.requires_grad_(False)
+    del grads
+    print(f"[lm_noise_sweep] granite-8b, {n_l} of 36 layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, f32: quant 4/4 QAT, "
+          f"{conf['steps']} SGD steps at lr {conf['lr']} on batch "
+          f"{conf['global_batch']} x {conf['seq_len']}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (min {min(losses):.4f}), "
+          f"step ms median {statistics.median(step_ms):.2f} (first "
+          f"{step_ms[0]:.1f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[lm_noise_sweep] losses {[round(x, 4) for x in losses]}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"lm noise sweep QAT: losses {losses}")
+
+    # 2. the eval: next-token top-1 on batch(999), P probes as lanes
+    batch = on_card(stream.batch(conf["eval_step"]))
+    base = TDPolicy(mode="td", bits_a=4, bits_w=4, n_chain=cfg.d_model,
+                    sigma_chain=0.0, tdc_q=1)
+
+    def layer_eval(sv, keys):
+        logits = tr.forward_lanes(params, batch, cfg, base, sv, keys, pol_q)
+        return (logits.argmax(-1) == batch["labels"]).float().mean((1, 2))
+
+    def single_logits(sv_row, k):
+        pol = NetworkPolicy(layers=tuple(base.replace(sigma_chain=float(s))
+                                         for s in sv_row), top=pol_q)
+        with torch.no_grad():
+            return tr.forward(params, batch, cfg, pol, key=k)[0]
+
+    def scalar_layer0(s, k):
+        logits = single_logits([s] + [0.0] * (n_l - 1), k)
+        return float((logits.argmax(-1) == batch["labels"]).float().mean())
+
+    # 3 lanes against 3 single forwards (layer 0 clean in every lane: the
+    # shared clean prefix, then the lanes)
+    sv3 = torch.tensor([[0.0, 0.5, 2.0, 0.0], [0.0] * 4,
+                        [0.0, 4.0, 0.25, 8.0]], device=dev)[:, :n_l]
+    keys3 = prng.split(prng.fold_in(key, 77), 3)
+    lanes3 = tr.forward_lanes(params, batch, cfg, base, sv3, keys3, pol_q)
+    same3 = [_bits_equal(lanes3[p], single_logits(sv3[p].tolist(),
+                                                  keys3[p]))
+             for p in range(3)]
+    print(f"[lm_noise_sweep] forward_lanes, 3 lanes at sigma "
+          f"{sv3.tolist()}: each lane equal to its single forward bit for "
+          f"bit {same3}")
+    if not all(same3):
+        fail("forward_lanes differs from the single forwards")
+    moved = float((lanes3[0] - lanes3[1]).abs().max())
+    print(f"[lm_noise_sweep] lane 0 (noisy) against lane 1 (clean): max "
+          f"|logit diff| {moved:.6g}")
+    if not moved > 0:
+        fail("forward_lanes: a noisy lane's logits equal the clean lane's")
+    del lanes3
+
+    # 3. the per-layer batched search
+    layer_eval(torch.ones(chunk, n_l, device=dev), prng.split(key, chunk))
+    torch.cuda.synchronize()
+    n0 = tv.launches
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = nt.find_sigma_max_batched(layer_eval, sigmas, key, n_layers=n_l,
+                                    n_repeats=reps, chunk_size=chunk,
+                                    device=dev)
+    torch.cuda.synchronize()
+    t_batched = time.perf_counter() - t0
+    search_launches = tv.launches - n0
+    n_chunks = -(-n_l * per // chunk)
+    print(f"[lm_noise_sweep] per-layer search: {res.n_evals} probes in "
+          f"{n_chunks} chunks of {chunk}, {n_l} layers x sigmas "
+          f"{list(sigmas)} x {reps} repeats (+ clean): wall "
+          f"{t_batched:.3f} s, td_vmm launches {search_launches}, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[lm_noise_sweep] acc_clean per layer {res.acc_clean.tolist()}")
+    for i in range(n_l):
+        print(f"[lm_noise_sweep] sigma_max layer{i}: {res.sigma_max[i]:.4f} "
+              f"(rel_drop {np.round(res.rel_drop[i], 4).tolist()})")
+    if search_launches != 7 * n_l * n_chunks or \
+            not np.isfinite(res.sigma_max).all():
+        fail(f"per-layer search: {search_launches} td_vmm launches, "
+             f"sigma_max {res.sigma_max}")
+
+    # 4. the scalar search of layer 0: the batched search's accuracies
+    t0 = time.perf_counter()
+    res0 = nt.find_sigma_max(scalar_layer0, sigmas, prng.fold_in(key, 0),
+                             n_repeats=reps)
+    t_scalar = time.perf_counter() - t0
+    equal0 = bool(np.array_equal(res0.rel_drop, res.rel_drop[0])
+                  and res0.acc_clean == res.acc_clean[0]
+                  and res0.sigma_max == res.sigma_max[0])
+    print(f"[lm_noise_sweep] layer 0 scalar: sigma_max {res0.sigma_max:.4f} "
+          f"against batched {res.sigma_max[0]:.4f}, accuracies equal "
+          f"{equal0}; wall {t_scalar:.3f} s for {per} evals, x {n_l} layers "
+          f"= {t_scalar * n_l:.3f} s against batched {t_batched:.3f} s")
+    if not equal0:
+        fail("layer 0: the scalar search differs from the batched search")
+
+    # 5. the network sweep: one sigma at every layer
+    t0 = time.perf_counter()
+    net = nt.find_sigma_max_batched(
+        lambda sv, keys: layer_eval(sv.expand(-1, n_l), keys), sigmas, key,
+        n_layers=1, n_repeats=reps, chunk_size=chunk, device=dev).layer(0)
+    print(f"[lm_noise_sweep] network sweep: acc_clean {net.acc_clean:.4f}, "
+          f"rel_drop " + ", ".join(f"{s:g}: {d:.4f}" for s, d in
+                                   zip(net.sigmas, net.rel_drop))
+          + f"; sigma_max {net.sigma_max:.4f}; wall "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    # 6. the per-layer policies (Fig. 11), their file, read back
+    solved = solve_network_policies(res.sigma_max, bits_a=4, bits_w=4,
+                                    n_chain=base.n_chain, device=dev)
+    for i, (sm, pol) in enumerate(zip(res.sigma_max, solved.layers)):
+        print(f"[lm_noise_sweep] policy layer{i}: sigma_max {sm:.4f} -> R "
+              f"{pol.redundancy}, q {pol.tdc_q}, sigma_chain "
+              f"{pol.sigma_chain:.6f}")
+    nt.write_policies(LM_POLICIES, "granite-8b",
+                      [f"layer{i}" for i in range(n_l)], res.sigma_max,
+                      solved)
+    back = td_cli.parse_td_per_layer(
+        f"@{LM_POLICIES}", TDExecCfg(mode="td", n_chain=cfg.d_model), n_l)
+    read_ok = [(c.sigma_max, c.n_chain, c.bits_a, c.bits_w) for c in back] \
+        == [(float(s), p.n_chain, p.bits_a, p.bits_w)
+            for s, p in zip(res.sigma_max, solved.layers)]
+    with torch.no_grad():
+        logits = tr.forward(params, batch, cfg, NetworkPolicy(
+            layers=solved.layers, top=pol_q), key=prng.fold_in(key, 4242))[0]
+    acc_solved = float((logits.argmax(-1) == batch["labels"]).float().mean())
+    torch.cuda.synchronize()
+    print(f"[lm_noise_sweep] {LM_POLICIES.relative_to(ROOT)} read back "
+          f"through parse_td_per_layer {read_ok}; accuracy at the solved "
+          f"policies {acc_solved:.4f} (clean {net.acc_clean:.4f}); the "
+          f"phase's wall {time.monotonic() - t_phase:.1f} s")
+    if not read_ok:
+        fail("the per-layer policy file does not read back")
+
+    # launches: a lane pass and a single forward run 7 td_vmm and 1
+    # flash_attn a layer; lm_head (quant) 2 lsq_quant a lane; QAT 2
+    # lsq_quant a dense and 1 flash_attn a layer a step (no remat)
+    lane_lanes = [chunk, 3] + [chunk] * n_chunks + [chunk]
+    singles = 3 + per + 1
+    passes = len(lane_lanes) + singles
+    expected = {"td_vmm": 7 * n_l * passes,
+                "flash_attn": n_l * (conf["steps"] + passes),
+                "decode_gqa": 0,
+                "lsq_quant": 2 * (7 * n_l + 1) * conf["steps"]
+                + 2 * (sum(lane_lanes) + singles)}
+    counts = {n: m.launches for n, m in mods.items()}
+    check_launches("lm_noise_sweep", counts, expected)
+    launches["lm_noise_sweep"] = counts
+    del params, leaves, batch, logits
+    torch.cuda.empty_cache()
+    _lm_sweep_kernel_checks(cfg, tv, solved.layers[0], sigmas, chunk)
+
+
+# flash_attn's f32 path (CUDA cores) against its plain version: the softmax
+# of at most 32 keys summed in another order, about 100 f32 ulps at |o| ~ 1
+ATOL_F32 = 1e-5
+
+
+def _lm_sweep_kernel_checks(cfg, tv, solved, sigmas, chunk: int) -> None:
+    """The LM sweep's kernels against their plain versions at its shapes
+    (these launches come after the path's counts were read): td_vmm's
+    lanes at a chunk's 13 lanes of M 256 over a shared w, n_chain d_model,
+    at every dense's (K, N), at sigma 0, at the sweep's per-lane sigmas
+    and at layer 0's solved policy, bit for bit against the plain version
+    and single launches; flash_attn in f32 at the single forward's batch
+    8, the 3-lane check's 24 and a chunk's 104, Sq 32, 32/8 heads of 128,
+    causal, within ATOL_F32.  lsq_quant's f32 shapes are in
+    `phase_lsq_quant`."""
+    import torch
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    conf = LM_SWEEP
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    m = conf["global_batch"] * conf["seq_len"]
+    d, f, kv_d = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.hd
+    kw = dict(bits_a=4, bits_w=4, n_chain=d)
+    sweep = [0.0] + [s for s in sigmas for _ in range(conf["n_repeats"])]
+    variants = {
+        "sigma 0": [[0.0, 1.0]] * chunk,
+        "the sweep's sigmas": [[s, 1.0] for s in sweep[:chunk]],
+        f"solved (sigma {solved.sigma_chain:.4f}, q {solved.tdc_q})":
+            [[solved.sigma_chain, float(solved.tdc_q)]] * chunk}
+    seed = torch.randint(0, 2 ** 32, (chunk,), generator=gen,
+                         dtype=torch.int64, device="cuda")
+    for label, k, n in (("attn.wq/wo", d, d), ("attn.wk/wv", d, kv_d),
+                        ("mlp.wi/wg", d, f), ("mlp.wo", f, d)):
+        x = _codes(gen, (chunk, m, k), kw["bits_a"])
+        w = _codes(gen, (k, n), kw["bits_w"])
+        for which, rows in variants.items():
+            par = torch.tensor(rows, dtype=torch.float32, device="cuda")
+            _lane_check(tv, f"{label}, {which}", x, w, par, seed, kw,
+                        tag="lm_noise_sweep")
+        del x, w
+    torch.cuda.empty_cache()
+    for b in (conf["global_batch"], 3 * conf["global_batch"],
+              chunk * conf["global_batch"]):
+        sq = conf["seq_len"]
+        q = torch.randn((b, sq, cfg.n_heads, cfg.hd), generator=gen,
+                        device="cuda")
+        k, v = (torch.randn((b, sq, cfg.n_kv_heads, cfg.hd), generator=gen,
+                            device="cuda") for _ in range(2))
+        args = (q, k, v, _i32([sq] * b), _i32([0]))
+        err = float((fa.flash_attn(*args, causal=True)
+                     - fa.flash_attn_plain(*args, causal=True)).abs().max())
+        print(f"[lm_noise_sweep] flash_attn f32 B={b} Sq={sq} "
+              f"Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} D={cfg.hd} causal: "
+              f"max |kernel - plain| {err:.3g} (tolerance {ATOL_F32:g})")
+        if not err <= ATOL_F32:
+            fail(f"flash_attn f32 disagrees with its plain version (B {b})")
+        del q, k, v, args
+
+
 def _span_report(prof, span: str, which: slice, side: str = "host") -> None:
     """Device time of the kernels that start inside the ranges of ``span``
     (the ranges picked by ``which``), by kernel name.  A span also shows up
@@ -2091,8 +2733,57 @@ def _span_report(prof, span: str, which: slice, side: str = "host") -> None:
               f"x{count[name]:<5d} {name[:110]}")
 
 
+def _n_syncs(seen) -> int:
+    return sum("synchronizing" in str(w.message) for w in seen)
+
+
+def serve_syncs(run) -> tuple[int, dict]:
+    """``run()`` (a `serve.run`) with the host syncs that torch reports
+    under ``torch.cuda.set_sync_debug_mode("warn")`` (a blocking copy
+    either way, ``.item()``; an explicit ``torch.cuda.synchronize`` is not
+    one) counted per call of the prefill and the decode step.  Returns
+    (the syncs of one calibrating blocking copy: 1 when the counting
+    works, {"prefill": [...], "decode": [...]})."""
+    import warnings
+    import torch
+    from repro_torch.launch import steps
+    calls: dict = {"prefill": [], "decode": []}
+    builders = {"prefill": steps.build_prefill_step,
+                "decode": steps.build_serve_step}
+
+    def counting(name, build):
+        def built(*a, **kw):
+            step = build(*a, **kw)
+
+            def counted(*args):
+                n0 = _n_syncs(seen)
+                out = step(*args)
+                calls[name].append(_n_syncs(seen) - n0)
+                return out
+            return counted
+        return built
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            torch.tensor([0.0], device="cuda")
+            calib = _n_syncs(seen)
+            steps.build_prefill_step = counting("prefill",
+                                                builders["prefill"])
+            steps.build_serve_step = counting("decode", builders["decode"])
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            steps.build_prefill_step = builders["prefill"]
+            steps.build_serve_step = builders["decode"]
+    return calib, calls
+
+
 def phase_profile():
-    """Where the time goes: a shorter serve run (gen 4), a scheduler run (4
+    """Where the time goes: a shorter serve run (gen 4, plain and with
+    --td-attn td; then again untraced, its host syncs counted a step), a
+    scheduler run (4
     requests, capacity 4, after a warm-up request) and a 2-step td train
     run under torch.profiler, each kernel assigned by its device timestamp
     to the "serve.prefill" / "serve.decode" / "sched.prefill" /
@@ -2110,12 +2801,23 @@ def phase_profile():
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     arch = td_cli.apply_td_args(cfgs.get("qwen3-8b"), "td")
-    with profile(activities=acts) as prof:
-        serve.run(arch, SERVE["batch"], SERVE["prompt_len"], 4, seed=0)
-    for span in ("serve.prefill", "serve.decode"):
-        _span_report(prof, span, slice(None))
-    del prof
-    torch.cuda.empty_cache()
+    for label, a in (("plain", arch), ("with --td-attn td", td_cli.
+                                         apply_td_args(arch, None,
+                                                       td_attn="td"))):
+        print(f"[profile] serve {label}:")
+        with profile(activities=acts) as prof:
+            serve.run(a, SERVE["batch"], SERVE["prompt_len"], 4, seed=0)
+        for span in ("serve.prefill", "serve.decode"):
+            _span_report(prof, span, slice(None))
+        del prof
+        torch.cuda.empty_cache()
+        calib, calls = serve_syncs(lambda: serve.run(
+            a, SERVE["batch"], SERVE["prompt_len"], 4, seed=0))
+        print(f"[profile] serve {label}: host syncs (torch's sync debug "
+              f"mode; a calibrating blocking copy counts {calib}): "
+              f"prefill {calls['prefill']}, each decode step "
+              f"{calls['decode']}")
+        torch.cuda.empty_cache()
     eng = ContinuousBatchingEngine(arch, capacity=4,
                                    s_cache=SCHED["s_cache"],
                                    kv_block=SCHED["kv_block"], seed=0)
@@ -2165,7 +2867,9 @@ def main() -> None:
     flush_l2(release=True)
     launches: dict = {}
     for phase in (phase_serve, phase_scheduler, phase_scheduler_scenario,
-                  phase_train, lambda lc: phase_noise_loop(lc, rows)):
+                  phase_train, lambda lc: phase_noise_loop(lc, rows),
+                  lambda lc: phase_td_attention(lc, rows),
+                  phase_lm_noise_sweep):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         phase(launches)

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import device as device_mod
+
 
 def _leaf(a, device) -> torch.Tensor:
     a = np.asarray(a)
@@ -32,10 +34,11 @@ def tree_from_numpy(x, device="cpu"):
     return _leaf(x, device)
 
 
-def params_from_jax(tree, cfg, device="cpu") -> dict:
-    """The port's parameters of model ``cfg`` from a numpy copy of the
-    reference's parameter pytree (unstacked layers: ``scan_layers`` off)."""
-    params = tree_from_numpy(tree, device)
+def params_from_jax(tree, cfg, device=None) -> dict:
+    """The port's parameters of model ``cfg`` on ``device`` (None: CUDA)
+    from a numpy copy of the reference's parameter pytree (unstacked
+    layers: ``scan_layers`` off)."""
+    params = tree_from_numpy(tree, device_mod.resolve(device))
     layers = params.get("layers")
     if not isinstance(layers, list) or len(layers) != cfg.n_layers:
         raise ValueError(f"expected a list of {cfg.n_layers} per-layer "
@@ -48,7 +51,6 @@ def resnet_params_from_jax(tree, cfg, device=None) -> dict:
     on ``device`` (None: CUDA) from a numpy copy of the reference's tree
     (``stem``, ``stem_bn``, ``blocks[i].{conv1, bn1, conv2, bn2, proj?}``,
     ``head``), checked against `models.resnet.noise_sites`."""
-    from repro_torch import device as device_mod
     from repro_torch.models import resnet
     params = tree_from_numpy(tree, device_mod.resolve(device))
     sites = ["stem"] + [

@@ -27,10 +27,15 @@ Both tiers share `crossing_sigma` and the key scheme: batched layer l draws
 ``split(fold_in(key, l), S*R + 1)``, eval (i, r) takes keys[i*R + r] and
 the clean eval keys[-1], so a scalar run of layer l with key
 ``fold_in(key, l)`` sees the same (sigma, key) pairs.
+
+`write_policies` writes a search's per-layer policies in the reference
+bench's JSON shape, which ``--td-per-layer @file`` reads back.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Callable, Sequence
 
 import numpy as np
@@ -180,3 +185,21 @@ def find_sigma_max_batched(eval_fn: Callable[[torch.Tensor, list],
     sigma_max = crossing_sigma(sig, drop, rel_drop_max)
     return BatchedNoiseToleranceResult(sig, drop, acc_clean, sigma_max,
                                        n_evals=l * per)
+
+
+def write_policies(path, model: str, sites: Sequence[str],
+                   sigma_max: Sequence[float], net) -> None:
+    """The per-layer policy artifact of the reference bench
+    (``per_layer_policies_<model>.json`` of
+    `benchmarks/bench_noise_tolerance.write_artifacts`): one record a site
+    with its sigma_max and the solved policy of ``net`` (a
+    `tdsim.policy.NetworkPolicy`), at ``path``."""
+    doc = {"model": model, "layers": [
+        {"site": site, "sigma_max": float(sig),
+         "bits_a": pol.bits_a, "bits_w": pol.bits_w,
+         "n_chain": pol.n_chain, "redundancy": pol.redundancy,
+         "tdc_q": pol.tdc_q, "sigma_chain": pol.sigma_chain}
+        for site, sig, pol in zip(sites, sigma_max, net.layers)]}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)

@@ -22,8 +22,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.attn_common import (DTYPE_FLAG, check_float,
-                                             check_index, softmax_rows)
+from repro_torch.kernels.attn_common import (DTYPE_FLAG, attn_mask,
+                                             check_float, check_index,
+                                             softmax_rows)
 
 launches = 0          # kernel launches since the last reset
 
@@ -112,13 +113,7 @@ def flash_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = hq // hkv
     qg = q.reshape(b, sq, hkv, g, d).to(torch.float32) * (d ** -0.5)
     sc = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32))
-    kpos = torch.arange(skv, device=q.device)
-    lens = torch.clamp(kv_len.to(torch.int64), max=skv)
-    mask = (kpos[None, :] < lens[:, None])[:, None, None, None, :]
-    if causal:
-        qpos = q_offset.reshape(()).to(torch.int64) \
-            + torch.arange(sq, device=q.device)
-        mask = mask & (qpos[:, None] >= kpos[None, :])[None, None, None]
+    mask = attn_mask(kv_len, q_offset, sq, skv, causal)[:, None, None]
     o = softmax_rows(sc, mask, lambda p: torch.einsum(
         "bkgst,btkd->bkgsd", p, v.to(torch.float32)))
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.attn_common import NEG_INF
+from repro_torch.kernels.attn_common import attn_mask, masked_softmax
 from repro_torch.kernels.flash_attn.flash_attn import flash_attn
 
 
@@ -25,15 +25,8 @@ def _masked_attn(q, k, v, kv_len, q_offset, causal: bool):
     g = hq // hkv
     qg = q.reshape(b, sq, hkv, g, d).to(torch.float32) * (d ** -0.5)
     sc = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32))
-    kpos = torch.arange(skv, device=q.device)
-    mask = (kpos[None, :] < kv_len[:, None])[:, None, None, None, :]
-    if causal:
-        qpos = q_offset.reshape(()) + torch.arange(sq, device=q.device)
-        mask = mask & (qpos[:, None] >= kpos[None, :])[None, None, None]
-    sc = torch.where(mask, sc, NEG_INF)
-    p = torch.exp(sc - sc.amax(-1, keepdim=True).detach())
-    p = torch.where(mask, p, 0.0)
-    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    mask = attn_mask(kv_len, q_offset, sq, skv, causal)[:, None, None]
+    p = masked_softmax(sc, mask)
     o = torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
     return o.reshape(b, sq, hq, d).to(q.dtype)
 

@@ -17,8 +17,11 @@ tokens to both packages.  Both modes print the TD energy meter's J/token
 (the paper's circuit model: the three hardware domains for the fixed
 batch, per request in scheduler mode).  ``--td-per-layer``,
 ``--scenario`` and ``--corner`` resolve the operating points as the
-reference does; drift adaptation (``--adapt``, ``--trace``) and TD
-attention (``--td-attn``) are not ported yet: their flags raise.
+reference does; ``--td-attn quant|td`` runs attention's QK^T and PV on
+the TD engine (`tdsim.td_attention`; the fixed batch only: the
+scheduler's per-row caches raise the reference's ValueError at the first
+decode step).  Drift adaptation (``--adapt``, ``--trace``) is not ported
+yet: its flags raise.
 """
 from __future__ import annotations
 
@@ -163,7 +166,7 @@ def run_scheduler(arch, streams: int, prompt_len: int, gen: int,
     return out
 
 
-_NOT_PORTED = ("adapt", "trace", "td_attn")
+_NOT_PORTED = ("adapt", "trace")
 
 
 def main(argv=None):
@@ -189,10 +192,10 @@ def main(argv=None):
                     help="heterogeneous per-layer TD policies: inline sigma "
                     "list '0.5,1.0,...' or '@per_layer_policies.json'")
     td_cli.add_scenario_args(ap)
+    td_cli.add_td_attn_arg(ap)
     # flags of the reference's CLI that this port does not run yet
     ap.add_argument("--adapt", action="store_true")
     ap.add_argument("--trace", default=None)
-    td_cli.add_td_attn_arg(ap)
     args = ap.parse_args(argv)
     given = [f for f in _NOT_PORTED if getattr(args, f) not in (None, False)]
     if given:
@@ -201,7 +204,8 @@ def main(argv=None):
             "repro_torch (ROADMAP.md §1)")
     arch = cfgs.get_smoke(args.arch) if args.smoke else cfgs.get(args.arch)
     arch = td_cli.apply_td_args(arch, args.td, args.td_per_layer,
-                                args.scenario, args.corner)
+                                args.scenario, args.corner,
+                                td_attn=args.td_attn)
     if args.scheduler:
         return run_scheduler(arch, args.streams, args.prompt_len, args.gen,
                              args.capacity, seed=args.seed,

@@ -66,8 +66,7 @@ def apply_td_args(arch: ArchConfig, td: str | None,
     """Shared --td / --td-per-layer / --td-attn / --scenario / --corner
     handling for the train/serve CLIs.  Scenario/corner names are validated
     against the core.scenario registries here so a typo fails at the CLI,
-    not inside the first policy solve.  (A ``td_attn`` config raises at
-    policy resolution: TD attention is not ported yet.)"""
+    not inside the first policy solve."""
     if td:
         arch = arch.replace(td=TDExecCfg(mode=td, n_chain=min(
             576, arch.model.d_model)))

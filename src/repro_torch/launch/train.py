@@ -8,9 +8,10 @@ registry -> model zoo -> TD execution policy -> synthetic data pipeline
 (prefetch) -> train_step (gradient accumulation + AdamW) -> watchdog/retry
 fault tolerance.  Parameters come from the port's seeded init in float32.
 ``--td-per-layer``, ``--scenario`` and ``--corner`` resolve the TD
-operating points as the reference does (`launch.td_cli`); checkpointing
-(``--ckpt-dir``), chaos schedules and TD attention (``--td-attn``) are not
-ported yet: they raise.
+operating points as the reference does (`launch.td_cli`), and
+``--td-attn quant|td`` runs attention on the TD engine
+(`tdsim.td_attention`, straight-through gradients); checkpointing
+(``--ckpt-dir``) and chaos schedules are not ported yet: they raise.
 """
 from __future__ import annotations
 
@@ -106,7 +107,7 @@ def run(arch, shape: ShapeCfg, steps: int, ckpt_dir: str | None,
     return params, losses
 
 
-_NOT_PORTED = ("td_attn", "ckpt_dir")
+_NOT_PORTED = ("ckpt_dir",)
 
 
 def main(argv=None):
@@ -126,8 +127,8 @@ def main(argv=None):
                     help="heterogeneous per-layer TD policies: inline sigma "
                     "list '0.5,1.0,...' or '@per_layer_policies.json'")
     td_cli.add_scenario_args(ap)
-    # flags of the reference's CLI that this port does not run yet
     td_cli.add_td_attn_arg(ap)
+    # a flag of the reference's CLI that this port does not run yet
     ap.add_argument("--ckpt-dir", default=None)
     args = ap.parse_args(argv)
     given = [f for f in _NOT_PORTED if getattr(args, f) is not None]
@@ -136,7 +137,8 @@ def main(argv=None):
 
     arch = cfgs.get_smoke(args.arch) if args.smoke else cfgs.get(args.arch)
     arch = td_cli.apply_td_args(arch, args.td, args.td_per_layer,
-                                args.scenario, args.corner)
+                                args.scenario, args.corner,
+                                td_attn=args.td_attn)
     shape = ShapeCfg("cli", args.seq, args.batch, "train")
 
     def session():

@@ -1,11 +1,12 @@
 """Attention: GQA with qk-norm, QKV bias, RoPE and a KV cache (port of
 `repro/models/attention.py`, self-attention).
 
-Every call routes to one of the fused engines, as in the reference:
-single-row causal decode (s == 1 with a cache) to
-`kernels.decode_gqa.ops.decode_attention`, everything else to
-`kernels.flash_attn.ops.flash_attention`.  The valid-KV prefix and the
-causal offset ride into the kernels as device tensors.
+Every call routes to one engine, as in the reference: with per-head
+policies (``attn_pols``) to `tdsim.td_attention.td_attention` (QK^T and
+PV as td_vmm lanes, over the whole cache); otherwise single-row causal
+decode (s == 1 with a cache) to `kernels.decode_gqa.ops.decode_attention`,
+everything else to `kernels.flash_attn.ops.flash_attention`.  The valid-KV
+prefix and the causal offset ride in as device tensors.
 
 Caches are ``{"k": (B, S_cache, Hkv, Dh), "v": ..., "idx": ...}``.  The
 fill index is a host int, or with ``per_row_idx`` a (B,) int32 tensor on
@@ -15,7 +16,8 @@ device (no host sync inside a step).  The reference's
 ``dynamic_update_slice`` returns a new cache; the port writes the new keys
 and values into the cache tensors in place (a cache is never read again at
 its old fill level) and returns the same tensors with the advanced index.
-Cross-attention and TD attention are not ported yet.
+The per-row cache takes no TD attention (the reference's ValueError).
+Cross-attention is not ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.configs.base import ModelCfg
 from repro_torch.kernels.decode_gqa.ops import decode_attention
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.models import common
+from repro_torch.tdsim.td_attention import td_attention
 
 
 def attn_init(gen: torch.Generator, cfg: ModelCfg, pol, dtype=torch.float32,
@@ -48,25 +51,28 @@ def attn_init(gen: torch.Generator, cfg: ModelCfg, pol, dtype=torch.float32,
 
 def attention(params: dict, x: torch.Tensor, cfg: ModelCfg, pol,
               positions: torch.Tensor, cache: dict | None = None,
-              causal: bool = True, key=None,
-              attn_pols=None) -> tuple[torch.Tensor, dict | None]:
+              causal: bool = True, key=None, attn_pols=None,
+              dense=None) -> tuple[torch.Tensor, dict | None]:
     """Self-attention with an optional KV cache; x (B, S, d).  ``key``
-    seeds the four denses' noise (``fold_key(key, 0..3)``)."""
-    if attn_pols is not None:
-        if cache is not None and isinstance(cache["idx"], torch.Tensor):
-            raise ValueError("TD-quantized attention takes a scalar "
-                             "q_offset; per-slot ragged caches run the "
-                             "precise flash-decode path")
-        raise NotImplementedError("TD attention (td_attention) is not yet "
-                                  "ported (ROADMAP.md §1, step 9)")
+    seeds the four denses' noise (``fold_key(key, 0..3)``) and TD
+    attention's (``fold_key(key, 4)``).  ``dense(p, h, j)`` computes the
+    j-th dense (wq, wk, wv, wo: 0..3); None means ``common.dense(p, h,
+    pol, fold_key(key, j))``."""
+    if attn_pols is not None and cache is not None \
+            and isinstance(cache["idx"], torch.Tensor):
+        raise ValueError("TD-quantized attention takes a scalar "
+                         "q_offset; per-slot ragged caches run the "
+                         "precise flash-decode path")
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dev = x.device
-    kq, kk, kv_, ko = (common.fold_key(key, i) for i in range(4))
+    if dense is None:
+        def dense(p, h, j):
+            return common.dense(p, h, pol, common.fold_key(key, j))
 
-    q = common.dense(params["wq"], x, pol, kq).reshape(b, s, hq, hd)
-    k = common.dense(params["wk"], x, pol, kk).reshape(b, s, hkv, hd)
-    v = common.dense(params["wv"], x, pol, kv_).reshape(b, s, hkv, hd)
+    q = dense(params["wq"], x, 0).reshape(b, s, hq, hd)
+    k = dense(params["wk"], x, 1).reshape(b, s, hkv, hd)
+    v = dense(params["wv"], x, 2).reshape(b, s, hkv, hd)
     if cfg.qk_norm and "q_norm" in params:
         q = common.rmsnorm(params["q_norm"], q, cfg.rms_eps)
         k = common.rmsnorm(params["k_norm"], k, cfg.rms_eps)
@@ -116,7 +122,11 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelCfg, pol,
         pos_q = positions if positions.dim() == 1 else positions[0]
         q_offset = pos_q[:1].to(torch.int32)
 
-    if s == 1 and cache is not None and causal:
+    if attn_pols is not None:
+        o = td_attention(q, k_use, v_use, attn_pols,
+                         common.fold_key(key, 4), causal=causal,
+                         kv_len=kv_len, q_offset=q_offset)
+    elif s == 1 and cache is not None and causal:
         # single-row causal decode: the query is the last valid position,
         # so prefix masking is causality
         o = decode_attention(q[:, 0].contiguous(), k_use, v_use,
@@ -125,7 +135,7 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelCfg, pol,
         o = flash_attention(q.contiguous(), k_use.contiguous(),
                             v_use.contiguous(), kv_len, q_offset,
                             causal=causal)
-    y = common.dense(params["wo"], o.reshape(b, s, hq * hd), pol, ko)
+    y = dense(params["wo"], o.reshape(b, s, hq * hd), 3)
     return y, new_cache
 
 

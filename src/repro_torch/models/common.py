@@ -8,6 +8,8 @@ Parameters are plain nested dicts of tensors, laid out as in the reference
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch import prng
@@ -68,27 +70,47 @@ def resolve_arch_policy(arch: ArchConfig, device=None
     through one `resolve_policies` call and come back as a NetworkPolicy
     (decoder family only).  `arch.scenario`/`arch.corner` resolve every
     "td"-mode matmul's operating point for that named scenario/corner.
-    TD attention (`arch.td_attn`) is not ported yet (ROADMAP §1, step 9).
+
+    `arch.td_attn` (a non-precise TDExecCfg) also resolves one policy per
+    query head for TD attention, its chain length clamped to the head dim
+    (the QK contraction), through the same batched solve and
+    scenario/corner, attached as `NetworkPolicy.attn` (a homogeneous
+    policy is promoted to a NetworkPolicy).  Decoder family only.
     """
-    td_attn = getattr(arch, "td_attn", None)
-    if td_attn is not None and td_attn.mode != "precise":
-        raise NotImplementedError("TD attention (td_attn) is not yet ported "
-                                  "(ROADMAP.md §1, step 9)")
     sc, co = arch.scenario, arch.corner
     if arch.td_per_layer is None:
-        return resolve_policies([arch.td], scenario=sc, corner=co,
+        base = resolve_policies([arch.td], scenario=sc, corner=co,
                                 device=device)[0]
-    if arch.model.family != "decoder":
-        raise ValueError("per-layer TD policies require a decoder-family "
-                         f"model, got {arch.model.family!r}")
-    n_layers = arch.model.n_layers
-    if len(arch.td_per_layer) != n_layers:
-        raise ValueError(
-            f"td_per_layer has {len(arch.td_per_layer)} entries for "
-            f"{n_layers}-layer model {arch.model.name!r}")
-    pols = resolve_policies(list(arch.td_per_layer) + [arch.td],
-                            scenario=sc, corner=co, device=device)
-    return td_policy.NetworkPolicy(layers=tuple(pols[:-1]), top=pols[-1])
+    else:
+        if arch.model.family != "decoder":
+            raise ValueError("per-layer TD policies require a decoder-family "
+                             f"model, got {arch.model.family!r}")
+        n_layers = arch.model.n_layers
+        if len(arch.td_per_layer) != n_layers:
+            raise ValueError(
+                f"td_per_layer has {len(arch.td_per_layer)} entries for "
+                f"{n_layers}-layer model {arch.model.name!r}")
+        pols = resolve_policies(list(arch.td_per_layer) + [arch.td],
+                                scenario=sc, corner=co, device=device)
+        base = td_policy.NetworkPolicy(layers=tuple(pols[:-1]), top=pols[-1])
+
+    td_attn = arch.td_attn
+    if td_attn is not None and td_attn.mode != "precise":
+        if arch.model.family != "decoder":
+            raise ValueError("td_attn requires a decoder-family model, "
+                             f"got {arch.model.family!r}")
+        spec = dataclasses.replace(
+            td_attn, n_chain=min(td_attn.n_chain, arch.model.hd))
+        attn_pols = tuple(resolve_policies([spec] * arch.model.n_heads,
+                                           scenario=sc, corner=co,
+                                           device=device))
+        if isinstance(base, td_policy.NetworkPolicy):
+            base = dataclasses.replace(base, attn=attn_pols)
+        else:
+            base = td_policy.NetworkPolicy(
+                layers=(base,) * arch.model.n_layers, top=base,
+                attn=attn_pols)
+    return base
 
 
 # ---------------------------------------------------------------------------

@@ -24,8 +24,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
-def swiglu(params: dict, x: torch.Tensor, pol, key=None) -> torch.Tensor:
-    k1, k2, k3 = (common.fold_key(key, i) for i in range(3))
-    h = silu(common.dense(params["wg"], x, pol, k1)) \
-        * common.dense(params["wi"], x, pol, k2)
-    return common.dense(params["wo"], h, pol, k3)
+def swiglu(params: dict, x: torch.Tensor, pol, key=None,
+           dense=None) -> torch.Tensor:
+    """``dense(p, h, j)`` computes the j-th dense (wg, wi, wo: 0, 1, 2);
+    None means ``common.dense(p, h, pol, fold_key(key, j))``."""
+    if dense is None:
+        def dense(p, h, j):
+            return common.dense(p, h, pol, common.fold_key(key, j))
+    h = silu(dense(params["wg"], x, 0)) * dense(params["wi"], x, 1)
+    return dense(params["wo"], h, 2)

@@ -10,7 +10,15 @@ channel mix), stub frontends and tied embeddings come with their families.
 
 Keys: layer i's mixer denses draw their noise seeds under
 ``fold_key(key, 2i)``, its FFN under ``fold_key(key, 2i + 1)``, lm_head
-under ``fold_key(key, 10_000)``, as in the reference.
+under ``fold_key(key, 10_000)``, as in the reference.  `_walk` (the
+layers) and `_head` hold that order for `forward` and `forward_lanes`.
+
+`forward_lanes` runs P probes of the batched noise search (the LM
+per-layer sweep of `benchmarks/bench_noise_tolerance._lm_eval_fns`) in one
+pass: the lanes fold into the batch, lane major, and every td dense is one
+td_vmm launch over the P lanes with the shared weight; attention runs on
+flash_attn over the folded batch.  The two differ only in the ``dense``
+callback they hand `_walk`.
 """
 from __future__ import annotations
 
@@ -19,7 +27,9 @@ import torch.utils.checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelCfg
+from repro_torch.kernels.td_vmm import ref as td_ref
 from repro_torch.models import attention, common, ffn
+from repro_torch.tdsim import td_linear
 
 
 def _check_supported(cfg: ModelCfg) -> None:
@@ -67,18 +77,70 @@ def init_params(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
     return params
 
 
-def _layer_apply(lp: dict, x: torch.Tensor, cfg: ModelCfg, pol, i: int,
+# a layer's denses by key path (2i + part, j): the mixer's wq, wk, wv, wo
+# (part 0), the FFN's wg, wi, wo (part 1)
+_DENSES = ((0, 4), (1, 3))
+
+
+def _layer_apply(lp: dict, x: torch.Tensor, cfg: ModelCfg, dense, i: int,
                  positions: torch.Tensor, cache: dict | None, key,
                  attn_pols=None) -> tuple[torch.Tensor, dict | None]:
-    kmix = common.fold_key(key, 2 * i)
-    kffn = common.fold_key(key, 2 * i + 1)
+    def mix(p, h, j):
+        return dense(i, (2 * i, j), p, h)
+
+    def mlp(p, h, j):
+        return dense(i, (2 * i + 1, j), p, h)
+
     h = common.rmsnorm(lp["ln1"], x, cfg.rms_eps)
-    y, new_cache = attention.attention(lp["attn"], h, cfg, pol, positions,
-                                       cache=cache, key=kmix,
-                                       attn_pols=attn_pols)
+    y, new_cache = attention.attention(lp["attn"], h, cfg, None, positions,
+                                       cache=cache,
+                                       key=common.fold_key(key, 2 * i),
+                                       attn_pols=attn_pols, dense=mix)
     x = x + y
     h = common.rmsnorm(lp["ln2"], x, cfg.rms_eps)
-    return x + ffn.swiglu(lp["mlp"], h, pol, kffn), new_cache
+    return x + ffn.swiglu(lp["mlp"], h, None, dense=mlp), new_cache
+
+
+def _walk(params: dict, x: torch.Tensor, cfg: ModelCfg, dense,
+          positions: torch.Tensor, key=None, attn_pols=None,
+          caches: list | None = None, remat: str = "none",
+          layers: range | None = None) -> tuple[torch.Tensor, list]:
+    """The decoder's layers in order (``layers``: a range of them, all by
+    default), shared by `forward` and `forward_lanes`.  ``dense(i, fold,
+    p, h)`` computes a dense of layer i with params p on h; ``fold`` is
+    the dense's key path from the forward's key, ``(2i, j)`` for the
+    mixer's j-th dense and ``(2i + 1, j)`` for the FFN's.  ``key`` seeds
+    TD attention (``fold_key(key, 2i, 4)``).  Returns (x, the layers' new
+    caches, None where a layer has no cache)."""
+    new_caches: list = [None] * cfg.n_layers
+    for i in (range(cfg.n_layers) if layers is None else layers):
+        cache = caches[i] if caches is not None else None
+        args = (params["layers"][i], x, cfg, dense, i, positions, cache, key,
+                attn_pols)
+        if remat == "full":
+            x, new_caches[i] = torch.utils.checkpoint.checkpoint(
+                _layer_apply, *args, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, new_caches[i] = _layer_apply(*args)
+    return x, new_caches
+
+
+def _policy_dense(pol, key):
+    """`_walk`'s ``dense`` for one forward: layer i at ``pol_at(pol, i)``,
+    its noise seeded by ``fold_key(key, *fold)``."""
+    def dense(i, fold, p, h):
+        return td_linear.linear(p, h, common.pol_at(pol, i),
+                                common.fold_key(key, *fold))
+    return dense
+
+
+def _head(params: dict, x: torch.Tensor, cfg: ModelCfg, top, key
+          ) -> torch.Tensor:
+    """Final norm and lm_head (under ``fold_key(key, 10_000)``)."""
+    x = common.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    return common.dense(params["lm_head"], x, top,
+                        common.fold_key(key, 10_000))
 
 
 def forward(params: dict, batch: dict, cfg: ModelCfg, pol,
@@ -97,27 +159,69 @@ def forward(params: dict, batch: dict, cfg: ModelCfg, pol,
     if remat not in ("none", "full"):
         raise NotImplementedError(f"remat={remat!r} is not yet ported to "
                                   "repro_torch (ported: none, full)")
-    tokens = batch["tokens"]
-    x = common.embed(params["embed"], tokens)
-    s = x.shape[1]
+    x = common.embed(params["embed"], batch["tokens"])
     if positions is None:
-        positions = torch.arange(s, device=x.device)
-    attn_pols = common.pol_attn(pol)
-    new_caches: list = [None] * cfg.n_layers
-    for i, lp in enumerate(params["layers"]):
-        cache = caches[i] if caches is not None else None
-        args = (lp, x, cfg, common.pol_at(pol, i), i, positions, cache, key,
-                attn_pols)
-        if remat == "full":
-            x, new_caches[i] = torch.utils.checkpoint.checkpoint(
-                _layer_apply, *args, use_reentrant=False,
-                preserve_rng_state=False)
-        else:
-            x, new_caches[i] = _layer_apply(*args)
-    x = common.rmsnorm(params["final_norm"], x, cfg.rms_eps)
-    logits = common.dense(params["lm_head"], x, common.pol_top(pol),
-                          common.fold_key(key, 10_000))
+        positions = torch.arange(x.shape[1], device=x.device)
+    x, new_caches = _walk(params, x, cfg, _policy_dense(pol, key), positions,
+                          key, common.pol_attn(pol), caches, remat)
+    logits = _head(params, x, cfg, common.pol_top(pol), key)
     return logits, (new_caches if caches is not None else None), {}
+
+
+@torch.no_grad()
+def forward_lanes(params: dict, batch: dict, cfg: ModelCfg, base_pol,
+                  sigma: torch.Tensor, keys, top_pol) -> torch.Tensor:
+    """P probes in one pass: ``batch`` {"tokens": (B, S)} shared, ``sigma``
+    (P, n_layers) each probe's noise std per layer (on the tokens'
+    device), ``keys`` P raw PRNG keys.  Layer i of lane p runs
+    ``base_pol`` at ``sigma[p, i]``, lm_head runs ``top_pol``.  Returns
+    (P, B, S, vocab) logits; lane p equals ``forward(params, batch, cfg,
+    NetworkPolicy(layers=(base_pol.replace(sigma_chain=sigma[p, i]),
+    ...), top=top_pol), key=keys[p])`` bit for bit.
+
+    The layers before the first one where any lane's sigma is nonzero run
+    once for all lanes (at sigma 0 the noise term is exactly zero); from
+    there the lanes fold into the batch.  lm_head runs lane by lane, so
+    each lane's matmul has the single pass's shape.  Reading the first
+    noisy layer costs one copy of ``sigma`` to the host a call, and the
+    lanes' seeds of every dense one copy to the device."""
+    _check_supported(cfg)
+    p_lanes, n_layers = len(keys), cfg.n_layers
+    if tuple(sigma.shape) != (p_lanes, n_layers):
+        raise ValueError(f"sigma {tuple(sigma.shape)} for {p_lanes} keys "
+                         f"and {n_layers} layers")
+    noisy = (sigma != 0).any(0).tolist()
+    first = noisy.index(True) if any(noisy) else n_layers
+    x = common.embed(params["embed"], batch["tokens"])
+    b, s, d = x.shape
+    dev = x.device
+    positions = torch.arange(s, device=dev)
+    x, _ = _walk(params, x, cfg,
+                 _policy_dense(base_pol.replace(sigma_chain=0.0), None),
+                 positions, layers=range(first))
+    # the seeds of every lane dense, a column each
+    folds = [(2 * i + part, j) for i in range(first, n_layers)
+             for part, n_dense in _DENSES for j in range(n_dense)]
+    col = {f: c for c, f in enumerate(folds)}
+    seeds = torch.tensor([[td_ref.derive_seed(common.fold_key(k, *f))
+                           for f in folds] for k in keys],
+                         dtype=torch.int64, device=dev)
+    tdc_q = torch.full((p_lanes,), float(base_pol.tdc_q),
+                       dtype=torch.float32, device=dev)
+    sigma = sigma.to(torch.float32)
+
+    def lane_dense(i, fold, p, h):
+        y = td_linear.linear_lanes(p, h.reshape(p_lanes, -1, h.shape[-1]),
+                                   base_pol, sigma[:, i], tdc_q,
+                                   seeds[:, col[fold]])
+        return y.reshape(*h.shape[:-1], y.shape[-1])
+
+    x = x.expand(p_lanes, b, s, d).reshape(p_lanes * b, s, d)
+    x, _ = _walk(params, x, cfg, lane_dense, positions,
+                 layers=range(first, n_layers))
+    x = x.reshape(p_lanes, b, s, d)
+    return torch.stack([_head(params, x[p], cfg, top_pol, keys[p])
+                        for p in range(p_lanes)])
 
 
 def init_caches(b: int, s_cache: int, cfg: ModelCfg, dtype=torch.bfloat16,

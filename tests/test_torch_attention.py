@@ -158,10 +158,25 @@ def test_attention_layer_prefill_then_decode_matches_reference():
 
 
 def test_td_attention_not_ported_raises():
+    """TD attention is ported (tests/test_torch_td_attention.py) except on
+    the per-row ragged cache, which raises the reference's ValueError;
+    a scalar-index cache takes it."""
     tcfg = tcfgs.get_smoke("qwen3-8b").model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    heads = (tquant(),) * tcfg.n_heads
+    ragged = tattn.init_cache(1, 4, tcfg, device="cpu", per_row_idx=True)
+    with pytest.raises(ValueError, match="per-slot ragged caches"):
         tattn.attention({}, torch.zeros((1, 1, tcfg.d_model)), tcfg,
-                        tquant(), torch.arange(1), attn_pols=(tquant(),))
+                        tquant(), torch.zeros((1, 1)), cache=ragged,
+                        attn_pols=heads)
+    tp = tree_from_numpy(jax.device_get(jattn.attn_init(
+        jax.random.PRNGKey(0), jcfgs.get_smoke("qwen3-8b").model,
+        jquant())))
+    cache = tattn.init_cache(1, 4, tcfg, device="cpu")
+    y, cache = tattn.attention(tp, torch.ones((1, 2, tcfg.d_model)), tcfg,
+                               tquant(), torch.arange(2), cache=cache,
+                               attn_pols=heads)
+    assert y.shape == (1, 2, tcfg.d_model) and cache["idx"] == 2
+    assert bool(torch.isfinite(y).all())
 
 
 def test_rope_and_rmsnorm_match_reference():

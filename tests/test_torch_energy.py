@@ -166,7 +166,7 @@ def test_engine_energy_matches_reference_engine(domain):
         cfg = ja.model
         jp = jget_api(cfg)["init"](jax.random.key(0), cfg,
                                    jpolicy.quant_policy())
-        tp = params_from_jax(jax.device_get(jp), cfg)
+        tp = params_from_jax(jax.device_get(jp), cfg, device="cpu")
         jeng = jsched.ContinuousBatchingEngine(
             ja, capacity=2, s_cache=16, params=jp, kv_block=8,
             meter_domain=domain)
@@ -230,6 +230,9 @@ def test_serve_cli_prints_j_per_token(capsys):
                        "--td-per-layer", "exact,2.0", "--batch", "1",
                        "--prompt-len", "4", "--gen", "2"])
     assert ids.shape == (1, 2)
-    for flag in (["--td-attn", "td"], ["--adapt"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tserve.main(["--smoke", "--device", "cpu", *flag])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tserve.main(["--smoke", "--device", "cpu", "--adapt"])
+    ids = tserve.main(["--smoke", "--device", "cpu", "--td", "td",
+                       "--td-attn", "td", "--batch", "1", "--prompt-len",
+                       "4", "--gen", "2"])
+    assert ids.shape == (1, 2) and "J/token" in capsys.readouterr().out

@@ -39,7 +39,9 @@ def _assert_pol(got, want):
         for g, w in zip(got.layers, want.layers):
             _assert_pol(g, w)
         _assert_pol(got.top, want.top)
-        assert got.attn is None and want.attn is None
+        assert (got.attn is None) == (want.attn is None)
+        for g, w in zip(got.attn or (), want.attn or ()):
+            _assert_pol(g, w)
         assert got.homogeneous == want.homogeneous
         return
     for f in EXACT:
@@ -181,8 +183,16 @@ def test_resolve_arch_policy(kw):
                 jcommon.resolve_arch_policy(ja.replace(td_per_layer=jl)))
     with pytest.raises(ValueError, match="entries"):
         tcommon.resolve_arch_policy(ta.replace(td_per_layer=tl[:1]))
-    with pytest.raises(NotImplementedError, match="td_attn"):
-        tcommon.resolve_arch_policy(ta.replace(td_attn=TTD(mode="td")))
+    # TD attention: one policy a query head, n_chain clamped to the head
+    # dim, on a promoted NetworkPolicy and beside per-layer policies
+    for attn in ("td", "quant"):
+        _assert_pol(
+            tcommon.resolve_arch_policy(ta.replace(td_attn=TTD(mode=attn))),
+            jcommon.resolve_arch_policy(ja.replace(td_attn=JTD(mode=attn))))
+    _assert_pol(tcommon.resolve_arch_policy(ta.replace(
+        td_per_layer=tl, td_attn=TTD(mode="td", sigma_max=2.0))),
+        jcommon.resolve_arch_policy(ja.replace(
+            td_per_layer=jl, td_attn=JTD(mode="td", sigma_max=2.0))))
     mixed = [TTD(), TTD(mode="quant"), TTD(mode="td", n_chain=64)]
     jmixed = [JTD(), JTD(mode="quant"), JTD(mode="td", n_chain=64)]
     for g, w in zip(tcommon.resolve_policies(mixed, **kw),

@@ -50,7 +50,7 @@ FREE_IDX = S + 3                 # the free slot's index, past S
 def params():
     cfg = jcfgs.get_smoke("qwen3-8b").model
     jp = jget_api(cfg)["init"](jax.random.key(0), cfg, jquant())
-    return jp, params_from_jax(jax.device_get(jp), cfg)
+    return jp, params_from_jax(jax.device_get(jp), cfg, device="cpu")
 
 
 def _setup(mode, monkeypatch):

@@ -55,7 +55,7 @@ LENS = [(3, 5), (7, 4), (5, 6), (4, 2), (6, 5), (2, 3)]
 def params():
     cfg = jcfgs.get_smoke("qwen3-8b").model
     jp = jget_api(cfg)["init"](jax.random.key(0), cfg, jquant())
-    return jp, params_from_jax(jax.device_get(jp), cfg)
+    return jp, params_from_jax(jax.device_get(jp), cfg, device="cpu")
 
 
 def _archs(mode, dtype="float32"):

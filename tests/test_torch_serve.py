@@ -51,7 +51,7 @@ def params():
     """Reference init (its structure is the same for quant and td)."""
     cfg = jcfgs.get_smoke("qwen3-8b").model
     jp = jget_api(cfg)["init"](jax.random.key(0), cfg, jquant())
-    return jp, params_from_jax(jax.device_get(jp), cfg)
+    return jp, params_from_jax(jax.device_get(jp), cfg, device="cpu")
 
 
 def _archs(mode, n_chain, dtype):

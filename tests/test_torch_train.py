@@ -284,7 +284,8 @@ def test_remat_full_equals_none():
 def test_train_run_matches_reference_driver(monkeypatch, capsys):
     """Both drivers, 3 steps of the qwen3-8b smoke model in td mode at
     float32 compute from the reference's init; the port's CLI on the CPU,
-    also at a scenario and corner; unported flags raise."""
+    also at a scenario and corner and with --td-attn; the unported
+    --ckpt-dir raises."""
     ja, ta = archs("qwen3-8b", "td", "float32", n_micro=1)
     jp, tp = init_pair(ja)
     monkeypatch.setattr(jtrain, "get_api", lambda cfg: {
@@ -309,8 +310,11 @@ def test_train_run_matches_reference_driver(monkeypatch, capsys):
                           "--steps", "1", "--seq", "16", "--batch", "4",
                           "--device", "cpu"])
     assert len(losses) == 1 and np.all(np.isfinite(losses))
-    for flag in (["--ckpt-dir", "ckpt"], ["--td-attn", "td"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ttrain.main(["--smoke", "--device", "cpu", *flag])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ttrain.main(["--smoke", "--device", "cpu", "--ckpt-dir", "ckpt"])
+    losses = ttrain.main(["--smoke", "--arch", "qwen3-8b", "--td", "td",
+                          "--td-attn", "td", "--steps", "1", "--seq", "16",
+                          "--batch", "4", "--device", "cpu"])
+    assert len(losses) == 1 and np.all(np.isfinite(losses))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ttrain.run(ta, TShape("t", 16, 4, "train"), 1, "ckpt", device="cpu")

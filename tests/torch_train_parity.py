@@ -51,7 +51,7 @@ def init_pair(ja):
     cfg = ja.model
     jp = jget_api(cfg)["init"](jax.random.key(0), cfg,
                                jcommon.resolve_arch_policy(ja))
-    return jp, params_from_jax(jax.device_get(jp), cfg)
+    return jp, params_from_jax(jax.device_get(jp), cfg, device="cpu")
 
 
 def _oracle_td_vmm(x_int, w_int, pol, seed):
