@@ -89,6 +89,28 @@
    then holds the sweep's kernels to their plain versions at its shapes
    (td_vmm's 13 lanes of M 256 over a shared w at every dense's K and N,
    bit for bit; flash_attn's f32 path at batch 8, 24 and 104);
+   then fault tolerance and drift adaptation, at the smoke traffic of the
+   reference's benches on full-width models: `phase_drift_traces`
+   (`benchmarks/bench_drift_traces.py`: 36-layer qwen3-8b, td at
+   sigma_max 2.0, 8 streams into capacity 2, the diurnal and bursty
+   traces, each through the adaptive engine and its `scripted_swaps`
+   replay, beside the plain engine on the same requests: zero lost, an
+   adaptation and a supply-moving staged install per trace, the replay's
+   tokens equal, one decode step built, no new td_vmm operand, no more
+   host syncs a decode step than the plain engine; then td_vmm with
+   ``params`` a row view of an (L, 2) operand tensor at the engines'
+   shapes, bit for bit against its plain version and the memoized
+   operand, before and after an in-place swap), `phase_chaos_serve`
+   (`bench_chaos.run_parity` and `run_drift`: 24 streams in quant mode
+   through a stall, a preemption and an explorer outage with the
+   fault-free tokens; 6 streams in td mode through a drift excursion
+   that adapts, re-prices and saves energy) and `phase_chaos_train`
+   (`bench_chaos.run_train_half`: granite-8b at its widths cut to 1
+   layer, 12 quant steps, a 7.4 GB checkpoint every 4 into
+   build/chaos_ckpt/, a bitflip of the newest and a preemption; the
+   resume at step 4 with the fault-free losses, digests of a restored
+   tree equal the saved ones; save and restore seconds and the free
+   disk printed);
 6. profiles a shorter serve run (plain, then with ``--td-attn td``, and
    counts each one's host syncs a step in an untraced rerun), a
    short scheduler run (4 requests, capacity 4) and a td train step under
@@ -101,13 +123,17 @@ any failure, with no CUDA device, or without the repository's `src/`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -132,6 +158,28 @@ SCHED = dict(capacity=8, s_cache=144, kv_block=64, requests=16,
 BENCH_SCHED = dict(capacity=16, s_cache=48, kv_block=64, requests=256,
                    prompt_len=16, gen=32, seed=7)
 SCHED_PATHS = {"scheduler": SCHED, "scheduler_bench": BENCH_SCHED}
+# the fault-tolerance phases' engines, full-width qwen3-8b.  "drift_traces":
+# benchmarks/bench_drift_traces.py at its smoke traffic (8 streams, capacity
+# 2, prompt 6, gen 24, request seed 7, drift threshold 0.15, traces of 64
+# steps); "chaos_serve": benchmarks/bench_chaos.py's serve half at its
+# smoke traffic (parity: 24 streams, capacity 4, prompt 8, gen 24, quant;
+# drift: 6 streams, td, a drift factor 0.5 at step 2).  Slots of 30 and 32
+# tokens round to 64.
+DRIFT = dict(capacity=2, s_cache=30, kv_block=64, requests=8, prompt_len=6,
+             gen=24, seed=7, threshold=0.15, trace_steps=64)
+CHAOS = dict(capacity=4, s_cache=32, kv_block=64, requests=24, prompt_len=8,
+             gen=24, seed=7, drift_requests=6)
+# chaos_serve's recovery at a long context, quant: slots of 32768 tokens
+# (4.83 GB of KV each), 11 of them (one below what plan_kv_cache admits
+# next to the 16.4 GB of parameters on an 80 GB card: 53 GB of KV), prompt
+# buckets of 1024, one request a slot (prompts of 500-1000 tokens, 16-32
+# new tokens), a preemption at step 12
+LONG = dict(capacity=11, s_cache=32768, prompt_pad=1024, kv_block=64,
+            requests=11, prompt_len=1000, gen=32, seed=7, preempt_at=12)
+# every engine whose admission (flash_attn B 1 over the bucket) and decode
+# (decode_gqa B = capacity over the slot) shapes the kernel phases check
+ENGINE_PATHS = {**SCHED_PATHS, "drift_traces": DRIFT, "chaos_serve": CHAOS,
+                "chaos_serve long": LONG}
 SMALL_SCHED = dict(capacities=(3, 9), s_cache=14, requests=12, prompt_len=8,
                    gen=6)
 # the per-layer scenario run of the engine: SCHED's traffic, the layers'
@@ -573,9 +621,14 @@ TD_VMM_TIMED = [
 
 
 def slot_len(conf: dict) -> int:
-    """The engine's slot (and prompt bucket) length: ``s_cache`` rounded up
-    to KV blocks, as `roofline.model.plan_kv_cache` rounds it."""
+    """The engine's slot length: ``s_cache`` rounded up to KV blocks, as
+    `roofline.model.plan_kv_cache` rounds it."""
     return -(-conf["s_cache"] // conf["kv_block"]) * conf["kv_block"]
+
+
+def bucket_len(conf: dict) -> int:
+    """The engine's prompt bucket: ``prompt_pad``, else the slot."""
+    return conf.get("prompt_pad") or slot_len(conf)
 
 
 # td_vmm's other shapes on the engine's paths, checked (not timed): every
@@ -889,9 +942,13 @@ def phase_flash(rows: list):
         checks.append((f"g {hq // 8}", 2, 40, 48, hq, 8, [48, 33], 3, True))
     checks.append(("train_4k microbatch", 1, 4096, 4096, 32, 8, [4096], 0,
                    True))
-    for path, conf in SCHED_PATHS.items():   # the engine's bucketed prefill
-        n = slot_len(conf)
+    for path, conf in ENGINE_PATHS.items():  # the engine's bucketed prefill
+        n = bucket_len(conf)
         checks.append((f"{path} admission", 1, n, n, 32, 8, [n], 0, True))
+    # chaos_train's forward (and its remat): granite-8b, batch 2 x 32
+    checks.append(("chaos_train", CHAOS_TRAIN["batch"], CHAOS_TRAIN["seq"],
+                   CHAOS_TRAIN["seq"], 32, 8, [CHAOS_TRAIN["seq"]] * 2, 0,
+                   True))
     max_err = 0.0
     for label, b, sq, skv, hq, hkv, lens, off, causal in checks:
         d = 128
@@ -1008,7 +1065,7 @@ def phase_decode(rows: list):
     gen = torch.Generator(device="cuda").manual_seed(2)
     hq, hkv, d = 32, 8, 128
     max_err = 0.0
-    for path, conf in SCHED_PATHS.items():
+    for path, conf in ENGINE_PATHS.items():
         b, s = conf["capacity"], slot_len(conf)
         q = _randn(gen, (b, hq, d))
         k = _randn(gen, (b, s, hkv, d))
@@ -1102,9 +1159,13 @@ def phase_lsq_quant(rows: list):
     noise loop's f32 shapes (resnet20-cifar's im2col patches of the stem
     and a stage-0 conv at 512 images, its smallest and largest conv
     weights and the head's weight); step sizes with exact .5 ties, a
-    random one and one below the 1e-8 floor; and the LM sweep's f32
+    random one and one below the 1e-8 floor; the LM sweep's f32
     shapes (granite-8b's weights, lm_head included, and a step's two
-    activation widths).  Must be bit-exact (max_abs_err 0)."""
+    activation widths); and in bf16 chaos_train's (granite-8b's weights
+    and its batch 2 x 32 activations) and the quant engines' activations
+    (chaos_serve's and its long-context run's, at admission, B 1 over the
+    prompt bucket, and at decode, B = capacity).  Must be bit-exact
+    (max_abs_err 0)."""
     import torch
     from repro_torch.kernels.lsq_quant import lsq_quant as lq
     from repro_torch.kernels.lsq_quant.ref import lsq_quant_ref
@@ -1129,13 +1190,26 @@ def phase_lsq_quant(rows: list):
                 ("granite lm_head", (g_d, g_v)),
                 ("granite act d_model", (8, 32, g_d)),
                 ("granite act d_ff", (8, 32, g_f))]
+    # bf16: chaos_train's QAT (granite-8b, batch 2 x 32) and the quant
+    # engines' activations (qwen3-8b)
+    ct = CHAOS_TRAIN
+    chaos_bf16 = [(label.replace("granite", "chaos_train"), shape)
+                  for label, shape in lm_sweep[:5]]
+    chaos_bf16 += [("chaos_train act d_model", (ct["batch"], ct["seq"], g_d)),
+                   ("chaos_train act d_ff", (ct["batch"], ct["seq"], g_f))]
+    for path in ("chaos_serve", "chaos_serve long"):
+        conf = ENGINE_PATHS[path]
+        for step, lead in (("admission", (1, bucket_len(conf))),
+                           ("decode", (conf["capacity"], 1))):
+            chaos_bf16 += [(f"{path} {step} act d_model", (*lead, d)),
+                           (f"{path} {step} act d_ff", (*lead, f))]
     cases = [(0.25, -8, 7), (0.0371, 0, 255), (1e-9, -8, 7)]
     gen = torch.Generator(device="cuda").manual_seed(3)
     n_cases = 0
     max_err = 0.0
     for dtype, dtype_shapes in ((torch.float32,
                                  shapes + noise_loop + lm_sweep),
-                                (torch.bfloat16, shapes)):
+                                (torch.bfloat16, shapes + chaos_bf16)):
         for label, shape in dtype_shapes:
             for s_val, qn, qp in cases:
                 x = torch.randn(shape, generator=gen, device="cuda") * 2.0
@@ -1161,7 +1235,8 @@ def phase_lsq_quant(rows: list):
                 del x, ties, got, want
     print(f"[lsq_quant] {n_cases} cases ({len(shapes)} shapes x 2 dtypes, "
           f"{len(noise_loop)} noise-loop and {len(lm_sweep)} LM-sweep shapes "
-          f"in f32, x {len(cases)} step sizes): max |kernel - plain| "
+          f"in f32, {len(chaos_bf16)} chaos shapes in bf16, x {len(cases)} "
+          f"step sizes): max |kernel - plain| "
           f"{max_err:g} (tolerance 0, bit patterns compared)")
     if max_err != 0.0:
         fail("lsq_quant is not bit-exact with its plain version")
@@ -2679,6 +2754,628 @@ def _lm_sweep_kernel_checks(cfg, tv, solved, sigmas, chunk: int) -> None:
         del q, k, v, args
 
 
+# ---------------------------------------------------------------------------
+# Fault tolerance and drift adaptation (benchmarks/bench_drift_traces.py and
+# benchmarks/bench_chaos.py at their smoke traffic, on full-width models).
+def build_traces(steps: int) -> dict:
+    """bench_drift_traces.build_traces: a hand-shaped diurnal swing and a
+    seeded bursty trace with the bench's ranges."""
+    from repro_torch import ft
+    third = max(4, steps // 3)
+    diurnal = ft.TrafficTrace([
+        ft.TraceSegment(steps=third, activity=1.1, load=1.0),
+        ft.TraceSegment(steps=third, activity=0.25, sparsity=0.85,
+                        load=0.5),
+        ft.TraceSegment(steps=steps - 2 * third, activity=0.9, load=0.9),
+    ], seed=0)
+    bursty = ft.TrafficTrace.generate(
+        seed=11, steps=steps, n_segments=6, activity_range=(0.2, 1.8),
+        sparsity_range=(0.5, 0.9), load_range=(0.4, 1.0))
+    return {"diurnal": diurnal, "bursty": bursty}
+
+
+@contextlib.contextmanager
+def sync_log():
+    """Records the host syncs torch reports under
+    ``torch.cuda.set_sync_debug_mode("warn")`` on this thread only (a
+    staged rebuild's solve syncs its own stream on a worker thread)."""
+    import torch
+    main, log = threading.get_ident(), []
+
+    def show(message, *a, **k):
+        if threading.get_ident() == main and "synchronizing" in str(message):
+            log.append(1)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield log
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def _counted(eng, name: str, log: list, per_call: list) -> None:
+    """Wraps the engine's method ``name`` to append the host syncs of each
+    call to ``per_call``."""
+    fn = getattr(eng, name)
+
+    def wrapped(*a, **k):
+        n0 = len(log)
+        out = fn(*a, **k)
+        per_call.append(len(log) - n0)
+        return out
+    setattr(eng, name, wrapped)
+
+
+def _engine_run(arch, conf: dict, params, mods: dict, n_requests=None,
+                **kw):
+    """One engine on ``conf``'s traffic after a warm-up request: launch
+    counters and the td_vmm operand memo read just before and after
+    `run()`, host syncs counted per decode step and per operand install.
+    ``kw`` goes to the engine (``adapt``, ``scripted_swaps``, ...) and to
+    `run` (``trace``, ``schedule``).  Returns (engine, summary, facts)."""
+    import torch
+    from repro_torch import ft
+    from repro_torch.kernels.td_vmm import ops as td_ops
+    from repro_torch.launch import serve, steps
+    from repro_torch.launch.scheduler import ContinuousBatchingEngine
+    from repro_torch.models import common
+
+    run_kw = {k: kw.pop(k) for k in ("trace", "schedule") if k in kw}
+    builds = []
+    build = steps.build_adaptive_serve_step
+    steps.build_adaptive_serve_step = \
+        lambda *a, **k: builds.append(1) or build(*a, **k)
+    try:
+        eng = ContinuousBatchingEngine(
+            arch, capacity=conf["capacity"], s_cache=conf["s_cache"],
+            prompt_pad=conf.get("prompt_pad"), kv_block=conf["kv_block"],
+            seed=0, params=params, **kw)
+    finally:
+        steps.build_adaptive_serve_step = build
+    eng.warmup()
+    reqs = serve.synthetic_requests(n_requests or conf["requests"],
+                                    conf["prompt_len"], conf["gen"],
+                                    arch.model.vocab, seed=conf["seed"])
+    t0 = time.monotonic()
+    for r in reqs:
+        r.arrival_s = t0
+    decode_syncs, install_syncs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    memo0 = len(td_ops._params)
+    with sync_log() as log:
+        _counted(eng, "_run_decode", log, decode_syncs)
+        _counted(eng, "_install_ops", log, install_syncs)
+        for m in mods.values():
+            m.launches = 0
+        out = eng.run(reqs, retry_policy=ft.RetryPolicy(backoff_s=0.0),
+                      **run_kw)
+        torch.cuda.synchronize()
+        counts = {n: m.launches for n, m in mods.items()}
+    facts = dict(counts=counts, builds=len(builds),
+                 memo_growth=len(td_ops._params) - memo0,
+                 decode_syncs=decode_syncs, install_syncs=install_syncs,
+                 peak=torch.cuda.max_memory_allocated() / 2**30,
+                 outputs={rid: list(r.generated)
+                          for rid, r in eng.done.items()})
+    a, d = len(eng.admit_ms), len(eng.decode_ms)
+    L = arch.model.n_layers
+    mode = common.pol_at(eng.pol, 0).mode
+    per_dense = {"td": ("td_vmm", 1), "quant": ("lsq_quant", 2)}[mode]
+    want = {"td_vmm": 0, "lsq_quant": 0, "flash_attn": L * a,
+            "decode_gqa": L * d}
+    want[per_dense[0]] = per_dense[1] * (7 * L + 1) * (a + d)
+    facts["expected"] = want
+    return eng, out, facts
+
+
+def _engine_line(path: str, label: str, eng, out: dict, facts: dict):
+    print(f"[{path}] {label}: {out['requests']} requests, "
+          f"{out['new_tokens']} new tokens in {out['wall_s']:.2f} s: "
+          f"{out['tokens_per_s']:.2f} tokens/s, {eng.steps_run} decode "
+          f"steps ({eng.replay_steps} of them replayed a continuation's "
+          f"row), {len(eng.admit_ms)} admissions; decode step median "
+          f"{statistics.median(eng.decode_ms):.1f} ms (min "
+          f"{min(eng.decode_ms):.1f}, max {max(eng.decode_ms):.1f}); "
+          f"admission median {statistics.median(eng.admit_ms):.1f} ms; "
+          f"peak memory {facts['peak']:.1f} GiB; host syncs a decode step "
+          f"{sorted(set(facts['decode_syncs']))}, an operand install "
+          f"{sorted(set(facts['install_syncs']))}; decode step built "
+          f"{facts['builds']} time(s); td_vmm operand memo grew by "
+          f"{facts['memo_growth']}")
+
+
+# every td dense's (K, N) of qwen3-8b: q and o, k and v, gate and up, down,
+# lm_head
+QWEN_DENSES = [("attn.wq/wo", 4096, 4096), ("attn.wk/wv", 4096, 1024),
+               ("mlp.wi", 4096, 12288), ("mlp.wo", 12288, 4096),
+               ("lm_head", 4096, 151936)]
+
+
+def _ops_row_checks(pol, swap: tuple, shapes: list) -> float:
+    """td_vmm with ``params`` a row view of an (L, 2) operand tensor, the
+    adaptive step's operand: bit for bit against its plain version and
+    against the same launch with the memoized operand, at sigma 0 (row 0)
+    and at the solved (sigma, q) (row 1), for every qwen3-8b dense at each
+    (label, M) of ``shapes``; then row 1 is overwritten in place with
+    ``swap`` (a non-blocking copy from pinned memory, as the engine's
+    install), which must move the output, to the plain version at the new
+    values.  Returns the largest |kernel - plain| measured."""
+    import torch
+    from repro_torch.kernels.td_vmm import ops as td_ops
+    from repro_torch.kernels.td_vmm import td_vmm as tv
+    from repro_torch.models import common
+    from repro_torch.tdsim.policy import NetworkPolicy
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    seed = torch.full((1,), 33350994, dtype=torch.int64, device="cuda")
+    kw = dict(bits_a=pol.bits_a, bits_w=pol.bits_w, n_chain=pol.n_chain)
+    rows = [(0.0, 1.0), (pol.sigma_chain, float(pol.tdc_q))]
+    err = 0.0
+    for label, m in shapes:
+        for name, k, n in QWEN_DENSES:
+            ops = torch.tensor(rows, dtype=torch.float32, device="cuda")
+            rt = common.runtime_td_policy(NetworkPolicy(layers=(pol, pol)),
+                                          ops)
+            x, w = _codes(gen, (m, k), kw["bits_a"]), \
+                _codes(gen, (k, n), kw["bits_w"])
+            got = []
+            for i, (sigma, q) in enumerate(rows):
+                par = td_ops.policy_params(rt.layers[i], x.device)
+                if par.data_ptr() != ops[i].data_ptr():
+                    fail("td_vmm's operand is not the row of ops")
+                out = tv.td_vmm(x, w, par, seed, **kw)
+                memo = tv.td_vmm(x, w, td_ops.runtime_operands(
+                    sigma, q, x.device), seed, **kw)
+                plain = tv.td_vmm_plain(x, w, par, seed, **kw)
+                err = max(err, float((out - plain).abs().max()))
+                if not (torch.equal(out, memo) and torch.equal(out, plain)):
+                    fail(f"td_vmm with an ops row: {label} {name} M={m} "
+                         f"sigma {sigma}: kernel, memoized and plain "
+                         "differ")
+                got.append(out)
+            host = torch.tensor(swap, dtype=torch.float32).pin_memory()
+            ops[1].copy_(host, non_blocking=True)
+            par = td_ops.policy_params(rt.layers[1], x.device)
+            after = tv.td_vmm(x, w, par, seed, **kw)
+            plain = tv.td_vmm_plain(x, w, par, seed, **kw)
+            err = max(err, float((after - plain).abs().max()))
+            moved = not torch.equal(after, got[1])
+            if not (torch.equal(after, plain) and moved):
+                fail(f"td_vmm after an in-place swap: {label} {name} M={m}:"
+                     f" equal to plain {torch.equal(after, plain)}, moved "
+                     f"{moved}")
+            print(f"[td_vmm] ops row {label} {name} M={m} K={k} N={n} "
+                  f"(route {tv.td_vmm_plan(m, k, n, kw['n_chain'], 4).route}"
+                  f"): sigma 0 and ({rows[1][0]:.6g}, q {rows[1][1]:g}) "
+                  f"bit-exact against plain and memoized; after the swap to "
+                  f"({swap[0]:.6g}, q {swap[1]:g}) moved, bit-exact")
+            del x, w, got, after, plain
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_drift_traces(launches: dict, rows: list):
+    """bench_drift_traces at its smoke traffic on full-width qwen3-8b (36
+    layers, bf16, td, sigma_max 2.0, drift threshold 0.15): the plain engine
+    on the same requests (decode ms and host syncs beside the adaptive
+    ones), then for each trace the adaptive engine live and its
+    ``scripted_swaps`` replay.  Gates per trace: zero lost, an adaptation,
+    a staged install that moved the supply, two Vdds in the swap log, the
+    adapted energy below the static worst case, the replay's tokens equal,
+    one decode step built per engine, no new td_vmm operand, and no more
+    host syncs a decode step than the plain engine's.  Then td_vmm with an
+    ops row at the path's shapes."""
+    import torch
+    import repro_torch.configs as cfgs
+    from repro_torch.configs.base import TDExecCfg
+    from repro_torch.models import common
+
+    conf = DRIFT
+    arch = cfgs.get("qwen3-8b").replace(td=TDExecCfg(mode="td",
+                                                     sigma_max=2.0))
+    mods = kernel_modules()
+    t_phase = time.monotonic()
+    plain, pout, pf = _engine_run(arch, conf, None, mods)
+    params = plain.params
+    _engine_line("drift_traces", "plain engine", plain, pout, pf)
+    check_launches("drift_traces plain", pf["counts"], pf["expected"])
+    plain_syncs = max(pf["decode_syncs"])
+    plain_ms = statistics.median(plain.decode_ms)
+    pol = common.pol_at(plain.pol, 0)
+    total = {n: 0 for n in mods}
+    swap = None
+    for name, trace in build_traces(conf["trace_steps"]).items():
+        eng, out, f = _engine_run(arch, conf, params, mods, adapt=True,
+                                  drift_threshold=conf["threshold"],
+                                  trace=trace)
+        _engine_line("drift_traces", f"{name} live", eng, out, f)
+        check_launches(f"drift_traces {name}", f["counts"], f["expected"])
+        for n, c in f["counts"].items():
+            total[n] += c
+        m = eng.meter
+        log = [(e["step"], e["kind"], e["vdds"][0],
+                tuple(float(v) for v in e["ops"].reshape(-1)[:2]))
+               for e in eng.swap_log]
+        print(f"[drift_traces] {name}: {trace!r}; adaptations "
+              f"{out['adaptations']}, staged installs "
+              f"{out['staged_installs']}, supply spans {out['supply_spans']};"
+              f" swap log (step, kind, vdd, (sigma, q)) {log}; p_x_one "
+              f"measured {out['p_x_one_measured']:.4f}; J/token (the "
+              f"circuit model) first {m.rate_history[0]:.4e}, last "
+              f"{m.rate_history[-1]:.4e}; run {out['energy_j_total']:.4e} J "
+              f"against the static worst case "
+              f"{out['static_worst_energy_j']:.4e} J; decode median "
+              f"{statistics.median(eng.decode_ms):.1f} ms against the plain "
+              f"engine's {plain_ms:.1f}")
+        vdds = {v for e in eng.swap_log for v in e["vdds"]}
+        if not (out["requests"] == conf["requests"]
+                and out["adaptations"] >= 1 and out["supply_spans"] >= 1
+                and len(vdds) >= 2
+                and out["static_worst_energy_j"] > out["energy_j_total"]):
+            fail(f"drift_traces {name}: requests {out['requests']}, "
+                 f"adaptations {out['adaptations']}, supply spans "
+                 f"{out['supply_spans']}, vdds {sorted(vdds)}, energy "
+                 f"{out['energy_j_total']} vs {out['static_worst_energy_j']}")
+        if f["builds"] != 1 or f["memo_growth"] != 0 or \
+                max(f["decode_syncs"]) > plain_syncs or \
+                any(f["install_syncs"]):
+            fail(f"drift_traces {name}: decode step built {f['builds']} "
+                 f"times, memo grew by {f['memo_growth']}, host syncs a "
+                 f"decode step {max(f['decode_syncs'])} against the plain "
+                 f"engine's {plain_syncs}, installs {f['install_syncs']}")
+        moved = [(float(e["ops"].reshape(-1)[0]),
+                  float(e["ops"].reshape(-1)[1])) for e in eng.swap_log]
+        moved = [o for o in moved if o != (pol.sigma_chain,
+                                           float(pol.tdc_q))]
+        if not moved:
+            fail(f"drift_traces {name}: no swap moved (sigma, q)")
+        swap = swap or moved[0]
+        rep, rout, rf = _engine_run(arch, conf, params, mods, adapt=True,
+                                    drift_threshold=conf["threshold"],
+                                    scripted_swaps=eng.swap_log,
+                                    trace=trace)
+        _engine_line("drift_traces", f"{name} scripted replay", rep, rout, rf)
+        if rf["outputs"] != f["outputs"] or rout["adaptations"] != 0 or \
+                rf["builds"] != 1 or rf["memo_growth"] != 0:
+            fail(f"drift_traces {name}: the scripted replay gave other "
+                 f"tokens ({rf['outputs'] != f['outputs']}), adapted "
+                 f"{rout['adaptations']} times, built its step "
+                 f"{rf['builds']} times or grew the memo by "
+                 f"{rf['memo_growth']}")
+        print(f"[drift_traces] {name}: the scripted replay's tokens equal "
+              f"the live run's ({sum(len(v) for v in f['outputs'].values())}"
+              f" tokens)")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches["drift_traces"] = total
+    # the decode step alone, plain and adaptive in turns (plain, adaptive,
+    # adaptive, plain; 10 steps each on the engines' last state, host clock
+    # to the step's token read): the engine runs above share the host
+    # with a rebuild's solve and vary with their admissions
+    turns = {"plain": [], "adaptive": []}
+    for label in ("plain", "adaptive", "adaptive", "plain"):
+        e = plain if label == "plain" else rep
+        with torch.inference_mode():
+            for _ in range(10):
+                t0 = time.perf_counter()
+                e._run_decode()
+                turns[label].append((time.perf_counter() - t0) * 1e3)
+    print(f"[drift_traces] decode step alone, in turns: plain median "
+          f"{statistics.median(turns['plain']):.1f} ms "
+          f"({[round(t, 1) for t in turns['plain']]}), adaptive median "
+          f"{statistics.median(turns['adaptive']):.1f} ms "
+          f"({[round(t, 1) for t in turns['adaptive']]})")
+    del plain, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[drift_traces] phase wall {time.monotonic() - t_phase:.1f} s")
+    err = _ops_row_checks(pol, swap, [
+        ("drift_traces admission", slot_len(conf)),
+        ("drift_traces decode", conf["capacity"]),
+        ("chaos_serve decode", CHAOS["capacity"])])
+    tv_row = next(r for r in rows if r["name"] == "td_vmm")
+    tv_row["max_abs_err"] = max(tv_row["max_abs_err"], err)
+
+
+def phase_chaos_serve(launches: dict):
+    """bench_chaos.run_parity and run_drift at their smoke traffic on
+    full-width qwen3-8b (36 layers, bf16).  Parity, quant mode: the
+    fault-free run, then a stall at step 1, a preemption at half its
+    steps and an explorer outage two steps later: zero lost, the
+    fault-free tokens, a re-admission, the explorer marked down.  Then the
+    same preemption at a long context (`_long_recovery`).  Drift,
+    td mode: a drift factor of 0.5 at step 2 must adapt and re-price the
+    meter, save energy against the static worst case, with one decode step
+    built and no new td_vmm operand."""
+    import torch
+    import repro_torch.configs as cfgs
+    from repro_torch import ft
+    from repro_torch.configs.base import TDExecCfg
+
+    conf = CHAOS
+    mods = kernel_modules()
+    t_phase = time.monotonic()
+    arch = cfgs.get("qwen3-8b").replace(td=TDExecCfg(mode="quant"))
+    eng0, base, f0 = _engine_run(arch, conf, None, mods)
+    _engine_line("chaos_serve", "parity, fault-free", eng0, base, f0)
+    check_launches("chaos_serve fault-free", f0["counts"], f0["expected"])
+    params = eng0.params
+    fire_at = max(2, base["steps"] // 2)
+    sched = ft.FaultSchedule([
+        ft.FaultEvent(1, "stall", {"duration_s": 0.01}),
+        ft.FaultEvent(fire_at, "preempt"),
+        ft.FaultEvent(fire_at + 2, "explorer_outage", {"up": False})])
+    print(f"[chaos_serve] schedule {sched.to_json()!r}")
+    eng, pre, f = _engine_run(arch, conf, params, mods, schedule=sched)
+    _engine_line("chaos_serve", "parity, under the schedule", eng, pre, f)
+    check_launches("chaos_serve", f["counts"], f["expected"])
+    readmissions = sum(r["readmissions"] for r in pre["per_request"])
+    kinds = {x["kind"] for x in pre["faults"]}
+    print(f"[chaos_serve] faults {pre['faults']}; readmissions "
+          f"{readmissions}; stragglers {pre['stragglers']}; explorer up "
+          f"{eng.explorer_up}; outputs equal the fault-free run's: "
+          f"{f['outputs'] == f0['outputs']}")
+    if not ({"preempt", "stall", "explorer_outage"} <= kinds
+            and pre["requests"] == conf["requests"]
+            and f["outputs"] == f0["outputs"] and readmissions >= 1
+            and not eng.explorer_up):
+        fail(f"chaos_serve parity: faults {kinds}, requests "
+             f"{pre['requests']}, readmissions {readmissions}, explorer up "
+             f"{eng.explorer_up}, outputs equal "
+             f"{f['outputs'] == f0['outputs']}")
+    launches["chaos_serve"] = f["counts"]
+    del eng0, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    _long_recovery(arch, params, mods, launches)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    arch = cfgs.get("qwen3-8b").replace(td=TDExecCfg(mode="td"))
+    sched = ft.FaultSchedule([ft.FaultEvent(2, "drift", {"factor": 0.5})])
+    eng, out, f = _engine_run(arch, conf, None, mods,
+                              n_requests=conf["drift_requests"], adapt=True,
+                              schedule=sched)
+    _engine_line("chaos_serve", "drift", eng, out, f)
+    check_launches("chaos_serve_drift", f["counts"], f["expected"])
+    m = eng.meter
+    worst = max(m.rate_history)
+    static_j = worst * m.run_total_tokens()
+    saved = static_j - m.run_total_energy()
+    print(f"[chaos_serve] drift: adaptations {out['adaptations']}, "
+          f"excursions {out['drift_excursions']}, p_x_one anchor "
+          f"{eng.drift.anchor:.4f}, measured {out['p_x_one_measured']:.4f}; "
+          f"meter policy swaps {out['meter_policy_swaps']}, J/token (the "
+          f"circuit model) {[f'{r:.4e}' for r in m.rate_history]}; saved "
+          f"{saved:.4e} J of {static_j:.4e} ({100 * saved / static_j:.1f}%)")
+    if not (out["requests"] == conf["drift_requests"]
+            and out["adaptations"] >= 1 and out["meter_policy_swaps"] >= 1
+            and saved > 0 and f["builds"] == 1 and f["memo_growth"] == 0):
+        fail(f"chaos_serve drift: requests {out['requests']}, adaptations "
+             f"{out['adaptations']}, meter swaps {out['meter_policy_swaps']},"
+             f" saved {saved}, builds {f['builds']}, memo growth "
+             f"{f['memo_growth']}")
+    launches["chaos_serve_drift"] = f["counts"]
+    print(f"[chaos_serve] phase wall {time.monotonic() - t_phase:.1f} s")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _long_recovery(arch, params, mods: dict, launches: dict) -> None:
+    """A preemption at a long context (`LONG`, quant): the fault-free run,
+    then the same requests with a preemption at step 12.  Gates: the
+    engine kept its 11 slots of 32768 tokens, zero lost, the fault-free
+    tokens, every request re-admitted, and the recovery's peak memory
+    within one slot of the fault-free run's (the continuations replay in
+    the engine's own cache).  Prints the recovery's time: the
+    re-admissions' prefills and the decode steps that replayed rows, and
+    the wall against the fault-free run's."""
+    import torch
+    from repro_torch import ft
+
+    conf = LONG
+    eng0, base, f0 = _engine_run(arch, conf, params, mods)
+    _engine_line("chaos_serve long", "fault-free", eng0, base, f0)
+    check_launches("chaos_serve long fault-free", f0["counts"],
+                   f0["expected"])
+    plan, cap = eng0.kv_plan, eng0.capacity
+    slot_gib = plan.bytes_per_slot / 2**30
+    print(f"[chaos_serve long] qwen3-8b quant: {cap} slots of "
+          f"{eng0.s_cache} tokens ({plan.bytes_per_slot} bytes of KV each, "
+          f"{cap * plan.bytes_per_slot} in all; plan_kv_cache admits "
+          f"{plan.max_slots} in its budget of {plan.budget_bytes} bytes, the "
+          f"card's {torch.cuda.get_device_properties(0).total_memory} less "
+          f"the parameters), prompt bucket {eng0.prompt_pad}")
+    if cap != conf["capacity"]:
+        fail(f"chaos_serve long: the engine took {cap} slots, not "
+             f"{conf['capacity']}")
+    del eng0
+    gc.collect()
+    torch.cuda.empty_cache()
+    at = conf["preempt_at"]
+    sched = ft.FaultSchedule([ft.FaultEvent(at, "preempt")])
+    eng, pre, f = _engine_run(arch, conf, params, mods, schedule=sched)
+    _engine_line("chaos_serve long", "preempted", eng, pre, f)
+    check_launches("chaos_serve long", f["counts"], f["expected"])
+    launches["chaos_serve_long"] = f["counts"]
+    readmit_ms = eng.admit_ms[conf["requests"]:]
+    replay_ms = eng.decode_ms[at:at + eng.replay_steps]
+    readmissions = sum(r["readmissions"] for r in pre["per_request"])
+    print(f"[chaos_serve long] recovery from the preemption at step {at}: "
+          f"{len(readmit_ms)} re-admissions {sum(readmit_ms):.1f} ms "
+          f"(median {statistics.median(readmit_ms):.1f}), then "
+          f"{eng.replay_steps} decode steps that replayed rows "
+          f"{sum(replay_ms):.1f} ms: {sum(readmit_ms) + sum(replay_ms):.1f}"
+          f" ms; wall {pre['wall_s']:.3f} s against the fault-free "
+          f"{base['wall_s']:.3f} s; peak memory {f['peak']:.3f} GiB against "
+          f"the fault-free {f0['peak']:.3f} GiB (a slot is {slot_gib:.3f} "
+          f"GiB; a second cache for the replay would be "
+          f"{cap * slot_gib:.3f} GiB more); outputs equal the fault-free "
+          f"run's: {f['outputs'] == f0['outputs']}")
+    if not (pre["requests"] == conf["requests"]
+            and readmissions == conf["requests"]
+            and f["outputs"] == f0["outputs"]
+            and f["peak"] < f0["peak"] + slot_gib):
+        fail(f"chaos_serve long: requests {pre['requests']}, readmissions "
+             f"{readmissions}, outputs equal {f['outputs'] == f0['outputs']},"
+             f" peak {f['peak']:.3f} GiB against {f0['peak']:.3f}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+CHAOS_TRAIN = dict(layers=1, seq=32, batch=2, steps=12, ckpt_every=4,
+                   corrupt_at=9, preempt_at=10, stall_at=2, keep=4)
+
+
+def phase_chaos_train(launches: dict):
+    """bench_chaos.run_train_half at its smoke length on granite-8b at its
+    published widths, cut to 1 of 36 layers (a checkpoint of the f32
+    parameters and AdamW's two moments is then 7.4 GB), quant mode, seq 32,
+    batch 2 in one microbatch: the fault-free run twice (its determinism),
+    then 12 steps with a save every 4 into build/chaos_ckpt/, a stall at 2,
+    a bitflip of the newest checkpoint at 9 and a preemption at 10 under
+    `ft.run_with_retries`.  Gates: sessions start at 0 and 4, all three
+    faults fired, the losses after the resume equal the fault-free run's,
+    the restored tree's digests equal the saved ones, and the last
+    checkpoint restores the run's final parameters bit for bit."""
+    import shutil
+    import torch
+    import repro_torch.configs as cfgs
+    from repro_torch import ft
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import ShapeCfg, TDExecCfg
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import init_opt_state, tree_leaves_with_path
+
+    conf = CHAOS_TRAIN
+    base = cfgs.get("granite-8b")
+    arch = base.replace(
+        model=dataclasses.replace(base.model, n_layers=conf["layers"]),
+        train=dataclasses.replace(base.train, n_microbatches=1),
+        td=TDExecCfg(mode="quant"))
+    cfg = arch.model
+    if (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab) != \
+            (4096, 32, 8, 14336, 49152):
+        fail(f"granite-8b widths {cfg}")
+    shape = ShapeCfg("chaos", conf["seq"], conf["batch"], "train")
+    mods = kernel_modules()
+    d = ROOT / "build" / "chaos_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    saves, restores = [], []
+    save, restore = ckpt.save, ckpt.restore
+
+    def timed_save(*a, **k):
+        h = save(*a, **k)
+        saves.append(h)
+        return h
+
+    def timed_restore(*a, **k):
+        t0 = time.perf_counter()
+        out = restore(*a, **k)
+        restores.append((out[0], time.perf_counter() - t0))
+        return out
+
+    def session_losses(ckpt_dir, schedule, record):
+        def session():
+            return train.run(arch, shape, conf["steps"], ckpt_dir,
+                             ckpt_every=conf["ckpt_every"], log_every=4,
+                             schedule=schedule, record=record)
+        return ft.run_with_retries(
+            session, policy=ft.RetryPolicy(backoff_s=0.0),
+            on_restart=lambda n, e: print(f"[chaos_train] restart {n}: "
+                                          f"{e!r}"))
+
+    t_phase = time.monotonic()
+    oracle = [session_losses(None, None, {})[1] for _ in range(2)]
+    same = oracle[0] == oracle[1]
+    spread = max(abs(a - b) for a, b in zip(*oracle))
+    print(f"[chaos_train] granite-8b quant, {cfg.n_layers} layer, d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, batch "
+          f"{shape.global_batch} x {shape.seq_len}: fault-free losses "
+          f"{oracle[0]}; a second fault-free run equal bit for bit: {same} "
+          f"(largest difference {spread!r})")
+    torch.cuda.empty_cache()
+    params = train.build_session(arch, shape, None)[0]
+    n_params = sum(p.numel() for _, p in tree_leaves_with_path(params))
+    del params
+    ckpt_bytes = 12 * n_params + 4
+    free = shutil.disk_usage(d).free
+    print(f"[chaos_train] {n_params} parameters: a checkpoint (f32 "
+          f"parameters and two moments) is {ckpt_bytes} bytes; free disk "
+          f"{free} bytes")
+    if free < conf["keep"] * ckpt_bytes:
+        fail(f"chaos_train: {free} bytes free cannot hold {conf['keep']} "
+             f"checkpoints of {ckpt_bytes} bytes")
+    sched = ft.FaultSchedule([
+        ft.FaultEvent(conf["stall_at"], "stall", {"duration_s": 0.01}),
+        ft.FaultEvent(conf["corrupt_at"], "ckpt_corrupt",
+                      {"mode": "bitflip", "seed": 3}),
+        ft.FaultEvent(conf["preempt_at"], "preempt")])
+    rec: dict = {}
+    ckpt.save, ckpt.restore = timed_save, timed_restore
+    try:
+        for m in mods.values():
+            m.launches = 0
+        final, losses = session_losses(str(d), sched, rec)
+        torch.cuda.synchronize()
+        counts = {n: m.launches for n, m in mods.items()}
+    finally:
+        ckpt.save, ckpt.restore = save, restore
+    resume = rec["starts"][-1]
+    print(f"[chaos_train] sessions start at {rec['starts']}; faults "
+          f"{rec['faults']}; losses after the resume {losses}")
+    for h in saves:
+        print(f"[chaos_train] save of step {h.step}: {h.copy_s:.2f} s to "
+              f"the host, {h.write_s:.2f} s for the digests and the disk")
+    for step, sec in restores:
+        print(f"[chaos_train] restore (step {step} after verifying the "
+              f"newer ones): {sec:.2f} s")
+    n_steps = conf["preempt_at"] + conf["steps"] - resume
+    per_step = train_expected(cfg, 1, "quant")
+    check_launches("chaos_train", counts,
+                   {n: c * n_steps for n, c in per_step.items()})
+    launches["chaos_train"] = counts
+    kinds = {k for _, k in rec["faults"]}
+    match = (losses == oracle[0][resume:] if same else
+             max(abs(a - b) for a, b in zip(losses, oracle[0][resume:]))
+             <= spread)
+    if not (rec["starts"] == [0, conf["ckpt_every"]]
+            and {"stall", "ckpt_corrupt", "preempt"} <= kinds and match):
+        fail(f"chaos_train: starts {rec['starts']}, faults {kinds}, losses "
+             f"after the resume {losses} against {oracle[0][resume:]} "
+             f"(gate: {'bit-equality' if same else f'spread {spread}'})")
+    last = ckpt.latest_steps(str(d))[-1]
+    step, tree, _ = ckpt.restore(str(d), (final, init_opt_state(final)),
+                                 step=last, device="cuda")
+    with open(d / f"step_{last:08d}" / ckpt.MANIFEST) as fh:
+        manifest = json.load(fh)
+    names, leaves = ckpt._flatten(tree)
+    digests = ckpt._digests([ckpt._to_host(v)[0] for v in leaves])
+    same_params = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        tree_leaves_with_path(tree[0]), tree_leaves_with_path(final)))
+    print(f"[chaos_train] step {step} restored: digests equal the saved "
+          f"ones {digests == manifest['digests']}, names "
+          f"{names == manifest['names']}, parameters equal the run's final "
+          f"ones bit for bit {same_params}")
+    if digests != manifest["digests"] or not same_params:
+        fail("chaos_train: a restored tree differs from the saved one")
+    del tree, final
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"[chaos_train] phase wall {time.monotonic() - t_phase:.1f} s; "
+          f"losses bit-equal to the fault-free run after the resume: "
+          f"{losses == oracle[0][resume:]}")
+    torch.cuda.empty_cache()
+
+
 def _span_report(prof, span: str, which: slice, side: str = "host") -> None:
     """Device time of the kernels that start inside the ranges of ``span``
     (the ranges picked by ``which``), by kernel name.  A span also shows up
@@ -2733,48 +3430,41 @@ def _span_report(prof, span: str, which: slice, side: str = "host") -> None:
               f"x{count[name]:<5d} {name[:110]}")
 
 
-def _n_syncs(seen) -> int:
-    return sum("synchronizing" in str(w.message) for w in seen)
-
-
 def serve_syncs(run) -> tuple[int, dict]:
     """``run()`` (a `serve.run`) with the host syncs that torch reports
     under ``torch.cuda.set_sync_debug_mode("warn")`` (a blocking copy
     either way, ``.item()``; an explicit ``torch.cuda.synchronize`` is not
-    one) counted per call of the prefill and the decode step.  Returns
-    (the syncs of one calibrating blocking copy: 1 when the counting
-    works, {"prefill": [...], "decode": [...]})."""
-    import warnings
+    one; `sync_log`) counted per call of the prefill and the decode step.
+    Returns (the syncs of one calibrating blocking copy: 1 when the
+    counting works, {"prefill": [...], "decode": [...]})."""
     import torch
     from repro_torch.launch import steps
     calls: dict = {"prefill": [], "decode": []}
     builders = {"prefill": steps.build_prefill_step,
                 "decode": steps.build_serve_step}
 
-    def counting(name, build):
+    def counting(name, build, log):
         def built(*a, **kw):
             step = build(*a, **kw)
 
             def counted(*args):
-                n0 = _n_syncs(seen)
+                n0 = len(log)
                 out = step(*args)
-                calls[name].append(_n_syncs(seen) - n0)
+                calls[name].append(len(log) - n0)
                 return out
             return counted
         return built
 
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
+    with sync_log() as log:
         try:
             torch.tensor([0.0], device="cuda")
-            calib = _n_syncs(seen)
+            calib = len(log)
             steps.build_prefill_step = counting("prefill",
-                                                builders["prefill"])
-            steps.build_serve_step = counting("decode", builders["decode"])
+                                                builders["prefill"], log)
+            steps.build_serve_step = counting("decode", builders["decode"],
+                                              log)
             run()
         finally:
-            torch.cuda.set_sync_debug_mode(0)
             steps.build_prefill_step = builders["prefill"]
             steps.build_serve_step = builders["decode"]
     return calib, calls
@@ -2869,10 +3559,14 @@ def main() -> None:
     for phase in (phase_serve, phase_scheduler, phase_scheduler_scenario,
                   phase_train, lambda lc: phase_noise_loop(lc, rows),
                   lambda lc: phase_td_attention(lc, rows),
-                  phase_lm_noise_sweep):
+                  phase_lm_noise_sweep,
+                  lambda lc: phase_drift_traces(lc, rows), phase_chaos_serve,
+                  phase_chaos_train):
+        gc.collect()           # engines wrapped by `_counted` form cycles
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         phase(launches)
+    gc.collect()
     torch.cuda.empty_cache()
     phase_profile()
     for r in rows:

@@ -17,9 +17,14 @@ of point queries.
     The process-wide default instance; `tdsim.policy` routes every policy
     solve through it, so re-resolving a network is a memo lookup.
 
-The reference's on-disk store (``cache_dir``), incremental refinement
-(`refine`) and thread-pool corner fan-out are not ported yet (ROADMAP §1,
-item 8): asking for them raises `NotImplementedError`.
+One lock (an RLock) guards the caches and the counters, so a staged
+rebuild thread may solve through the service while the serve loop does;
+`count_fallback` counts a remote resolve degraded to this process
+(`launch.explore.resolve_with_fallback`).  The TCP front end is
+`launch/explore.py`.  The reference's on-disk store (``cache_dir``),
+incremental refinement (`refine`) and thread-pool corner fan-out are not
+ported yet (ROADMAP §1, item 8): asking for them raises
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -136,6 +141,7 @@ class ExplorerService:
                  max_point_entries: int = 512, device=None):
         if cache_dir:
             raise _not_ported("the on-disk store (cache_dir)")
+        self.cache_dir = None
         self.device = device
         self._grids: collections.OrderedDict[str, design_grid.DesignGrid] \
             = collections.OrderedDict()
@@ -167,6 +173,15 @@ class ExplorerService:
         with self._lock:
             self._grids.clear()
             self._points.clear()
+
+    def count_fallback(self) -> int:
+        """Record one remote resolve degraded to this process, under the
+        service lock: a staged rebuild thread and the serve loop may both
+        degrade at once, and ``stats.fallback_resolves += 1`` alone is a
+        read-modify-write race.  Returns the new count."""
+        with self._lock:
+            self.stats.fallback_resolves += 1
+            return self.stats.fallback_resolves
 
     def _grid_get(self, key: str) -> design_grid.DesignGrid | None:
         with self._lock:

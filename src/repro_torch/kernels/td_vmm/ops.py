@@ -2,11 +2,15 @@
 
 ``td_vmm_seeded`` flattens leading batch dims and runs the kernel wrapper
 with the policy's (sigma_chain, tdc_q) and the seed as device tensors.  The
-contraction is not padded: the kernel masks positions past K itself.  The
-(sigma, q) operand is made once per (device, sigma, q) and reused; the seed
-operand is filled on the device from the host integer (a fill kernel takes
-the value as an argument), so a call copies nothing from the host and
-never waits for the device, however many seeds a run derives.
+contraction is not padded: the kernel masks positions past K itself.  A
+solved policy's (sigma, q) operand is made once per (device, sigma, q) and
+reused; a runtime policy's (`models.common.runtime_td_policy`: sigma and q
+are 0-d views of one row of an operand tensor) passes that row itself, so
+an in-place write to the operand tensor moves the next launch's operating
+point, and no memo entry, copy or host read is made.  The seed operand is
+filled on the device from the host integer (a fill kernel takes the value
+as an argument), so a call copies nothing from the host and never waits
+for the device, however many seeds a run derives.
 
 ``td_vmm_lanes`` is the reference's ``jax.vmap`` over ``td_vmm_seeded``
 (the batched noise search's probes, TD attention's ``_lane_vmm``): P lanes
@@ -23,15 +27,38 @@ from repro_torch.kernels.td_vmm.td_vmm import td_vmm as td_vmm_kernel
 _params: dict[tuple, torch.Tensor] = {}
 
 
-def runtime_operands(sigma: float, tdc_q: float, seed: int,
-                     device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(params f32 [sigma, q] (memoized), seed int64 (1,)) on ``device``."""
+def runtime_operands(sigma: float, tdc_q: float, device) -> torch.Tensor:
+    """The memoized params f32 [sigma, q] of a solved policy on
+    ``device``."""
     key = (torch.device(device), float(sigma), float(tdc_q))
     if key not in _params:
         _params[key] = torch.tensor([float(sigma), float(tdc_q)],
                                     dtype=torch.float32, device=device)
-    return _params[key], torch.full((1,), int(seed), dtype=torch.int64,
-                                    device=device)
+    return _params[key]
+
+
+def policy_params(pol, device) -> torch.Tensor:
+    """The (2,) f32 [sigma, q] operand of ``pol`` on ``device``: the row
+    that a runtime policy's sigma and q view (never copied), or the
+    memoized tensor of a solved policy's floats.  Tensor operands that are
+    not the two adjacent elements of one f32 row on ``device`` raise: a
+    copy here would run at every launch."""
+    sigma, q = pol.sigma_chain, pol.tdc_q
+    if not isinstance(sigma, torch.Tensor) and \
+            not isinstance(q, torch.Tensor):
+        return runtime_operands(sigma, q, device)
+    if not (isinstance(sigma, torch.Tensor) and isinstance(q, torch.Tensor)
+            and sigma.dtype == q.dtype == torch.float32
+            and sigma.device == q.device == torch.device(device)
+            and sigma.dim() == q.dim() == 0
+            and sigma.untyped_storage().data_ptr()
+            == q.untyped_storage().data_ptr()
+            and q.storage_offset() == sigma.storage_offset() + 1):
+        raise ValueError(
+            "a td policy's tensor (sigma_chain, tdc_q) must be the 0-d "
+            "views of one f32 row on the launch's device "
+            "(models.common.runtime_td_policy)")
+    return sigma.as_strided((2,), (1,), sigma.storage_offset())
 
 
 def td_vmm_seeded(x_int: torch.Tensor, w_int: torch.Tensor, pol,
@@ -40,8 +67,9 @@ def td_vmm_seeded(x_int: torch.Tensor, w_int: torch.Tensor, pol,
     derived uint32 noise seed (`ref.derive_seed`).  Returns (..., N) f32."""
     k, n = w_int.shape
     lead = x_int.shape[:-1]
-    params, seed_t = runtime_operands(pol.sigma_chain, pol.tdc_q, seed,
-                                      x_int.device)
+    params = policy_params(pol, x_int.device)
+    seed_t = torch.full((1,), int(seed), dtype=torch.int64,
+                        device=x_int.device)
     out = td_vmm_kernel(x_int.reshape(-1, k), w_int, params, seed_t,
                         bits_a=pol.bits_a, bits_w=pol.bits_w,
                         n_chain=pol.n_chain, k_true=k)

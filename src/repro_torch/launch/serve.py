@@ -20,8 +20,9 @@ batch, per request in scheduler mode).  ``--td-per-layer``,
 reference does; ``--td-attn quant|td`` runs attention's QK^T and PV on
 the TD engine (`tdsim.td_attention`; the fixed batch only: the
 scheduler's per-row caches raise the reference's ValueError at the first
-decode step).  Drift adaptation (``--adapt``, ``--trace``) is not ported
-yet: its flags raise.
+decode step).  In scheduler mode ``--adapt`` runs the drift-adaptive
+engine and ``--trace SEED:STEPS[:SEGMENTS]`` or ``--trace @file.json``
+replays a traffic trace through it (`ft.TrafficTrace`).
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from torch.profiler import record_function
 
 import repro_torch.configs as cfgs
 from repro_torch import device as device_mod
+from repro_torch import ft
 from repro_torch.configs.base import ShapeCfg
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch import td_cli
@@ -137,19 +139,36 @@ def synthetic_requests(n: int, prompt_len: int, gen: int,
     return reqs
 
 
+def parse_trace(spec: str) -> ft.TrafficTrace:
+    """``--trace`` value -> `ft.TrafficTrace`: ``@file.json`` loads a saved
+    trace; ``SEED:STEPS[:SEGMENTS]`` generates a seeded one
+    (`repro/launch/serve.py:112`)."""
+    if spec.startswith("@"):
+        return ft.TrafficTrace.load(spec[1:])
+    parts = spec.split(":")
+    if len(parts) not in (2, 3):
+        raise ValueError("--trace wants @file.json or SEED:STEPS[:SEGMENTS]"
+                         f", got {spec!r}")
+    seed, steps = int(parts[0]), int(parts[1])
+    n_seg = int(parts[2]) if len(parts) == 3 else 6
+    return ft.TrafficTrace.generate(seed, steps, n_segments=n_seg)
+
+
 def run_scheduler(arch, streams: int, prompt_len: int, gen: int,
-                  capacity: int, seed: int = 0, device=None) -> dict:
-    """Continuous-batching serve: ragged streams through the scheduler.
-    Returns the engine's summary."""
+                  capacity: int, seed: int = 0, adapt: bool = False,
+                  trace=None, device=None) -> dict:
+    """Continuous-batching serve: ragged streams through the scheduler,
+    drift-adaptive with ``adapt`` and replaying ``trace``.  Returns the
+    engine's summary."""
     eng = ContinuousBatchingEngine(arch, capacity=capacity,
                                    s_cache=prompt_len + gen, seed=seed,
-                                   device=device)
+                                   adapt=adapt, device=device)
     reqs = synthetic_requests(streams, prompt_len, gen, arch.model.vocab,
                               seed=seed + 1)
     t_arrival = time.monotonic()
     for r in reqs:
         r.arrival_s = t_arrival
-    out = eng.run(reqs)
+    out = eng.run(reqs, trace=trace)
     print(f"[serve/sched] {out['requests']} requests, "
           f"{out['new_tokens']} tokens in {out['wall_s']:.2f} s "
           f"({out['tokens_per_s']:.1f} tok/s, {out['steps']} steps, "
@@ -163,10 +182,16 @@ def run_scheduler(arch, streams: int, prompt_len: int, gen: int,
         print(f"[serve/sched] TD energy: {out['energy_j_total']:.3e} J "
               f"total, {out['j_per_token']:.3e} J/token "
               f"({eng.meter.domain} domain, per-request rows available)")
+    if adapt:
+        print(f"[serve/sched] drift: p_x_one={out['p_x_one_measured']:.3f} "
+              f"(policy anchor {common.pol_at(eng.pol, 0).p_x_one:.3f}), "
+              f"{out['adaptations']} adaptation(s), "
+              f"{out['supply_spans']} supply span(s)")
+    if trace is not None:
+        print(f"[serve/sched] trace: seed={trace.seed} "
+              f"{len(trace.segments)} segment(s) / {trace.total_steps} "
+              f"steps; swaps={[e['step'] for e in out['swap_log']]}")
     return out
-
-
-_NOT_PORTED = ("adapt", "trace")
 
 
 def main(argv=None):
@@ -193,15 +218,15 @@ def main(argv=None):
                     "list '0.5,1.0,...' or '@per_layer_policies.json'")
     td_cli.add_scenario_args(ap)
     td_cli.add_td_attn_arg(ap)
-    # flags of the reference's CLI that this port does not run yet
-    ap.add_argument("--adapt", action="store_true")
-    ap.add_argument("--trace", default=None)
+    ap.add_argument("--adapt", action="store_true",
+                    help="scheduler mode: measure activation activity in "
+                    "the decode step and hot-swap the TD operating point "
+                    "(policy + energy rate) when it drifts")
+    ap.add_argument("--trace", default=None,
+                    help="scheduler mode: replay a traffic trace through "
+                    "the drift loop, @file.json or SEED:STEPS[:SEGMENTS] "
+                    "(implies --adapt)")
     args = ap.parse_args(argv)
-    given = [f for f in _NOT_PORTED if getattr(args, f) not in (None, False)]
-    if given:
-        raise NotImplementedError(
-            f"--{given[0].replace('_', '-')} is not yet ported to "
-            "repro_torch (ROADMAP.md §1)")
     arch = cfgs.get_smoke(args.arch) if args.smoke else cfgs.get(args.arch)
     arch = td_cli.apply_td_args(arch, args.td, args.td_per_layer,
                                 args.scenario, args.corner,
@@ -209,6 +234,9 @@ def main(argv=None):
     if args.scheduler:
         return run_scheduler(arch, args.streams, args.prompt_len, args.gen,
                              args.capacity, seed=args.seed,
+                             adapt=args.adapt or args.trace is not None,
+                             trace=(parse_trace(args.trace)
+                                    if args.trace else None),
                              device=args.device)
     return run(arch, args.batch, args.prompt_len, args.gen, seed=args.seed,
                device=args.device)

@@ -6,8 +6,9 @@ ragged-prefill and insert steps.
 Each step casts the parameters to the compute dtype, as the reference's
 steps do.  `cast_tree` returns a leaf that already has that dtype as is,
 so parameters stored in the compute dtype (`serve.run` stores them in
-bf16 at init) are cast once, at load, instead of on every step.  The
-drift-adaptive serve step waits for `ft/drift.py` (ROADMAP.md §1).
+bf16 at init) are cast once, at load, instead of on every step.
+`build_adaptive_serve_step` is the drift-adaptive decode step of the
+continuous-batching engine.
 """
 from __future__ import annotations
 
@@ -112,6 +113,42 @@ def build_serve_step(arch: ArchConfig, shape: ShapeCfg, device=None):
         logits, new_state = api["decode_step"](p_c, tok, state, cfg, pol)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         return next_tok, new_state
+
+    return serve_step
+
+
+def build_adaptive_serve_step(arch: ArchConfig, shape: ShapeCfg,
+                              device=None):
+    """Drift-adaptive decode step (`repro/launch/steps.py:106-136`):
+    `build_serve_step` plus (a) the policy's (sigma_chain, tdc_q) bound to
+    the runtime operand tensor ``ops`` (`common.runtime_td_policy`: the
+    engine swaps an operating point by writing into ``ops`` in place, and
+    the step is built once) and (b) the activation bit density of this
+    step's token embeddings (`ft.drift.measure_p_x_one`), masked by
+    ``active``, the (B,) occupancy of the continuous batch: free slots
+    carry a stale last token.  ``serve_step(params, tok, state, ops,
+    active) -> (next_tok, new_state, p_x_one)``, p_x_one a 0-d f32 device
+    tensor; nothing here waits for the device."""
+    from repro_torch.ft import drift as ft_drift
+
+    cfg = arch.model
+    pol = common.resolve_arch_policy(arch, device=device)
+    api = get_api(cfg)
+    compute_dt = DTYPES[arch.train.compute_dtype]
+    bits_a = common.pol_at(pol, 0).bits_a
+    bound: list = [None, None]          # (ops, its runtime policy)
+
+    def serve_step(params, tok, state, ops, active):
+        if bound[0] is not ops:
+            bound[:] = [ops, common.runtime_td_policy(pol, ops)]
+        p_c = common.cast_tree(params, compute_dt)
+        logits, new_state = api["decode_step"](p_c, tok, state, cfg,
+                                               bound[1])
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        px = ft_drift.measure_p_x_one(
+            common.embed(params["embed"], tok[:, 0]).to(torch.float32),
+            bits_a, mask=active)
+        return next_tok, new_state, px
 
     return serve_step
 

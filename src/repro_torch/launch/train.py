@@ -5,17 +5,20 @@
 
 runs on CUDA (pass ``--device cpu`` for a CPU run).  Wires together: config
 registry -> model zoo -> TD execution policy -> synthetic data pipeline
-(prefetch) -> train_step (gradient accumulation + AdamW) -> watchdog/retry
-fault tolerance.  Parameters come from the port's seeded init in float32.
-``--td-per-layer``, ``--scenario`` and ``--corner`` resolve the TD
-operating points as the reference does (`launch.td_cli`), and
-``--td-attn quant|td`` runs attention on the TD engine
-(`tdsim.td_attention`, straight-through gradients); checkpointing
-(``--ckpt-dir``) and chaos schedules are not ported yet: they raise.
+(prefetch) -> train_step (gradient accumulation + AdamW) -> async
+checkpoints (`checkpoint.ckpt`, ``--ckpt-dir``) -> watchdog/retry fault
+tolerance.  Parameters come from the port's seeded init in float32, or
+from the newest intact checkpoint.  ``--td-per-layer``, ``--scenario`` and
+``--corner`` resolve the TD operating points as the reference does
+(`launch.td_cli`), and ``--td-attn quant|td`` runs attention on the TD
+engine (`tdsim.td_attention`, straight-through gradients).  `run` also
+consumes a chaos `ft.FaultSchedule` (stalls, checkpoint corruption,
+preemptions).
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
@@ -24,6 +27,7 @@ from torch.profiler import record_function
 import repro_torch.configs as cfgs
 from repro_torch import device as device_mod
 from repro_torch import ft
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import ShapeCfg
 from repro_torch.data.pipeline import PrefetchLoader
 from repro_torch.data.synthetic import DataCfg, SyntheticStream
@@ -33,22 +37,26 @@ from repro_torch.models import common, get_api
 from repro_torch.optim import adamw
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to repro_torch "
-                               "(ROADMAP.md §1)")
-
-
 def build_session(arch, shape, ckpt_dir, seed=0, device=None):
-    """(params, opt_state, train_step, start_step) of a fresh session."""
-    if ckpt_dir:
-        raise _not_ported("checkpointing (--ckpt-dir)")
+    """(params, opt_state, train_step, start_step): the seeded init, or
+    the newest intact checkpoint in ``ckpt_dir``; a directory whose every
+    step fails verification starts cold (from the init) rather than
+    failing."""
     dev = device_mod.resolve(device)
     cfg = arch.model
     pol = common.resolve_arch_policy(arch, device=dev)
     params = get_api(cfg)["init"](seed, cfg, pol, device=dev)
     opt_state = adamw.init_opt_state(params)
+    start_step = 0
+    if ckpt_dir and ckpt.latest_steps(ckpt_dir):
+        try:
+            start_step, (params, opt_state), _ = ckpt.restore(
+                ckpt_dir, (params, opt_state), device=dev)
+            print(f"[train] resumed from step {start_step}")
+        except ckpt.CorruptCheckpoint as e:
+            print(f"[train] no intact checkpoint, cold start: {e}")
     return (params, opt_state,
-            steps_lib.build_train_step(arch, shape, device=dev), 0)
+            steps_lib.build_train_step(arch, shape, device=dev), start_step)
 
 
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -60,29 +68,61 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 def run(arch, shape: ShapeCfg, steps: int, ckpt_dir: str | None,
-        log_every: int = 10, seed: int = 0, schedule=None, device=None,
-        stats: dict | None = None):
-    """One train session from step 0 to ``steps``; returns (params,
-    losses).  ``stats``, when given, receives per step ``step_s`` (host
-    clock up to the loss's device sync) and ``grad_norm``.  Each step runs
-    inside a "train.step" span that ends at that sync."""
-    if schedule is not None:
-        raise _not_ported("chaos fault schedules (ft.chaos)")
+        ckpt_every: int = 50, log_every: int = 10, seed: int = 0,
+        fail_at: int | None = None, schedule: "ft.FaultSchedule | None" = None,
+        record: dict | None = None, device=None, stats: dict | None = None):
+    """One train session from the latest checkpoint to ``steps``; returns
+    (params, losses of this session's steps).
+
+    Every ``ckpt_every`` steps the parameters and optimizer state are
+    saved asynchronously into ``ckpt_dir`` (if given).  ``schedule``
+    injects a `ft.FaultSchedule` (fire once): preemptions raise through to
+    the caller's `ft.run_with_retries`, stalls sleep before the step,
+    ``ckpt_corrupt`` corrupts the newest published checkpoint (after
+    joining a save in flight, so it lands on a whole one), and the next
+    session restores from the last intact step.  ``record``, when given,
+    is filled in place: ``starts`` (the resume step of each session) and
+    ``faults`` ((step, kind) fired).  ``stats`` receives per step
+    ``step_s`` (host clock up to the loss's device sync) and
+    ``grad_norm``.  Each step runs inside a "train.step" span that ends at
+    that sync."""
     cfg = arch.model
     dev = device_mod.resolve(device)
     params, opt_state, train_step, start = build_session(
         arch, shape, ckpt_dir, seed, dev)
+    if record is not None:
+        record.setdefault("starts", []).append(start)
+        record.setdefault("faults", [])
     stream = SyntheticStream(
         DataCfg(vocab=cfg.vocab, seq_len=shape.seq_len,
                 global_batch=shape.global_batch, seed=seed))
     loader = PrefetchLoader(stream, start_step=start)
     watchdog = ft.StepWatchdog()
+    pending_save = None
     losses = []
     try:
         for i in range(start, steps):
             step_idx, host_batch = loader.get()
             assert step_idx == i
             batch = {k: _to_device(v, dev) for k, v in host_batch.items()}
+            if fail_at is not None and i == fail_at:
+                raise ft.Preemption(f"injected failure at step {i}")
+            if schedule is not None:
+                for ev in schedule.pop(i):
+                    if record is not None:
+                        record["faults"].append((i, ev.kind))
+                    if ev.kind == "stall":
+                        time.sleep(float(ev.params.get("duration_s", 0.05)))
+                    elif ev.kind == "ckpt_corrupt" and ckpt_dir:
+                        if pending_save is not None:
+                            pending_save.join()
+                            pending_save = None
+                        ft.corrupt_checkpoint(
+                            ckpt_dir, ev.params.get("mode", "bitflip"),
+                            seed=int(ev.params.get("seed", 0)))
+                    elif ev.kind == "preempt":
+                        raise ft.Preemption(f"chaos preempt at step {i}")
+                    # drift / explorer_outage target serving
             watchdog.start(i)
             with record_function("train.step"):
                 params, opt_state, metrics = train_step(
@@ -102,12 +142,17 @@ def run(arch, shape: ShapeCfg, steps: int, ckpt_dir: str | None,
                       f"gnorm={float(metrics['grad_norm']):.3f} "
                       f"lr={float(metrics['lr']):.2e} "
                       f"({rep.duration:.2f}s)")
+            if ckpt_dir and (i + 1) % ckpt_every == 0:
+                if pending_save is not None:
+                    pending_save.join()
+                pending_save = ckpt.save(ckpt_dir, i + 1,
+                                         (params, opt_state),
+                                         meta={"arch": cfg.name})
     finally:
         loader.close()
+        if pending_save is not None:
+            pending_save.join()
     return params, losses
-
-
-_NOT_PORTED = ("ckpt_dir",)
 
 
 def main(argv=None):
@@ -128,12 +173,10 @@ def main(argv=None):
                     "list '0.5,1.0,...' or '@per_layer_policies.json'")
     td_cli.add_scenario_args(ap)
     td_cli.add_td_attn_arg(ap)
-    # a flag of the reference's CLI that this port does not run yet
-    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="save every 50 steps here and resume from the "
+                    "newest intact step")
     args = ap.parse_args(argv)
-    given = [f for f in _NOT_PORTED if getattr(args, f) is not None]
-    if given:
-        raise _not_ported(f"--{given[0].replace('_', '-')}")
 
     arch = cfgs.get_smoke(args.arch) if args.smoke else cfgs.get(args.arch)
     arch = td_cli.apply_td_args(arch, args.td, args.td_per_layer,

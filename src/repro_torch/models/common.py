@@ -114,6 +114,72 @@ def resolve_arch_policy(arch: ArchConfig, device=None
 
 
 # ---------------------------------------------------------------------------
+# Runtime operating points (drift adaptation; `repro/models/common.py:116-178`)
+# ---------------------------------------------------------------------------
+def runtime_td_policy(pol, ops: torch.Tensor):
+    """Rebind every "td"-mode layer policy's (sigma_chain, tdc_q) to the
+    runtime operand tensor ``ops``: the hot-swap hook of the drift-adaptive
+    decode step.
+
+    ``ops`` is ``(2,)`` f32 ``[sigma, q]`` applied to every TD layer, or
+    ``(L, 2)`` for per-layer operating points.  Each bound policy holds
+    0-d views of its row, and `kernels.td_vmm.ops` hands that row to the
+    kernel as its ``params`` operand: writing new values into ``ops`` (in
+    place) moves the operating point of the same step, with no copy and no
+    host read.  Non-"td" policies pass through; a NetworkPolicy's `top`
+    and `attn` are left as solved."""
+    def bind(p: td_policy.TDPolicy, row) -> td_policy.TDPolicy:
+        if p.mode != "td":
+            return p
+        return p.replace(sigma_chain=row[0], tdc_q=row[1])
+
+    if isinstance(pol, td_policy.NetworkPolicy):
+        rows = [ops[i] if ops.ndim == 2 else ops for i in range(len(pol))]
+        return dataclasses.replace(
+            pol, layers=tuple(bind(p, r) for p, r in zip(pol.layers, rows)))
+    return bind(pol, ops[0] if ops.ndim == 2 else ops)
+
+
+def td_policy_ops(pol, device=None) -> torch.Tensor:
+    """The ``(L, 2)`` (or ``(2,)`` for a plain policy) float32 operand
+    tensor of a solved policy, the value `runtime_td_policy` rebinds, on
+    ``device`` (None: the host)."""
+    if isinstance(pol, td_policy.NetworkPolicy):
+        vals = [[float(p.sigma_chain), float(p.tdc_q)] for p in pol.layers]
+    else:
+        vals = [float(pol.sigma_chain), float(pol.tdc_q)]
+    return torch.tensor(vals, dtype=torch.float32, device=device)
+
+
+def td_layer_indices(pol) -> list[int]:
+    """Indices of the "td"-mode layer policies of ``pol`` (the layers the
+    drift loop re-resolves; a plain TDPolicy is layer 0 or nothing)."""
+    if isinstance(pol, td_policy.NetworkPolicy):
+        return [i for i, p in enumerate(pol.layers) if p.mode == "td"]
+    return [0] if pol.mode == "td" else []
+
+
+def replace_td_layers(pol, solved):
+    """``pol`` with its "td"-mode layers replaced by ``solved`` (one new
+    TDPolicy per `td_layer_indices` entry, in order); `top`, `attn` and the
+    other layers pass through.  Both the (sigma, q) hot swap and the
+    staged supply swap rebuild the policy set with it."""
+    idx = td_layer_indices(pol)
+    solved = list(solved)
+    if len(solved) != len(idx):
+        raise ValueError(f"need {len(idx)} solved td layers, "
+                         f"got {len(solved)}")
+    if not idx:
+        return pol
+    if isinstance(pol, td_policy.NetworkPolicy):
+        layers = list(pol.layers)
+        for i, p in zip(idx, solved):
+            layers[i] = p
+        return dataclasses.replace(pol, layers=tuple(layers))
+    return solved[0]
+
+
+# ---------------------------------------------------------------------------
 # Initializers / dense layer
 # ---------------------------------------------------------------------------
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, pol,

@@ -163,7 +163,7 @@ def solve_td_policies_over_vdd(specs: Sequence[TDLayerSpec],
             p_x_one=p1, w_bit_sparsity=wsp, lib=lib, device=device)
         for k, i in enumerate(idxs):
             resolved[i] = dataclasses.replace(specs[i], vdd=float(v[k]))
-    return solve_td_policies(resolved)  # type: ignore[arg-type]
+    return solve_td_policies(resolved, device)  # type: ignore[arg-type]
 
 
 def apply_scenario(specs: Sequence[TDLayerSpec],

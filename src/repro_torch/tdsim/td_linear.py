@@ -60,13 +60,25 @@ def td_matmul_int(x_int: torch.Tensor, w_int: torch.Tensor, pol: TDPolicy,
     planes_seg = planes.reshape(planes.shape[:-1] + (n_seg, pol.n_chain)
                                 ).to(torch.float32)
     partial = torch.einsum("b...sk,skn->b...sn", planes_seg, xw_seg)
+    dev = partial.device
+    if isinstance(pol.tdc_q, torch.Tensor):
+        # a runtime operand (`models.common.runtime_td_policy`): as in the
+        # kernel, q is clamped to at least 1 and never read on the host
+        q = torch.clamp(pol.tdc_q.to(device=dev, dtype=torch.float32),
+                        min=1.0)
+    else:
+        q = pol.tdc_q
     if eps is not None:
-        live = torch.clamp(k - torch.arange(n_seg) * pol.n_chain, min=1,
-                           max=pol.n_chain).to(torch.float32)
-        sig = float(pol.sigma_chain) * torch.sqrt(live / pol.n_chain)
-        partial = partial + eps * sig[:, None]
-    if pol.tdc_q > 1:
-        partial = pol.tdc_q * torch.round(partial / pol.tdc_q)
+        live = torch.clamp(k - torch.arange(n_seg, device=dev) * pol.n_chain,
+                           min=1, max=pol.n_chain).to(torch.float32)
+        sigma = pol.sigma_chain
+        sigma = (sigma.to(device=dev, dtype=torch.float32)
+                 if isinstance(sigma, torch.Tensor) else float(sigma))
+        # sigma 0 adds exactly 0
+        partial = partial + eps * (sigma * torch.sqrt(live / pol.n_chain)
+                                   )[:, None]
+    if isinstance(q, torch.Tensor) or q > 1:
+        partial = q * torch.round(partial / q)
     else:
         partial = torch.round(partial)
     per_plane = partial.sum(-2)

@@ -230,8 +230,11 @@ def test_serve_cli_prints_j_per_token(capsys):
                        "--td-per-layer", "exact,2.0", "--batch", "1",
                        "--prompt-len", "4", "--gen", "2"])
     assert ids.shape == (1, 2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tserve.main(["--smoke", "--device", "cpu", "--adapt"])
+    # --adapt belongs to scheduler mode: the fixed batch ignores it, as the
+    # reference's CLI does
+    ids = tserve.main(["--smoke", "--device", "cpu", "--adapt", "--batch",
+                       "1", "--prompt-len", "4", "--gen", "2"])
+    assert ids.shape == (1, 2)
     ids = tserve.main(["--smoke", "--device", "cpu", "--td", "td",
                        "--td-attn", "td", "--batch", "1", "--prompt-len",
                        "4", "--gen", "2"])

@@ -203,9 +203,11 @@ def test_serve_cli_scheduler_on_cpu(capsys):
     want = tserve.synthetic_requests(4, 6, 4, 128, seed=1)
     assert sum(r.max_new_tokens for r in want) == out["new_tokens"]
     for flag in (["--adapt"], ["--trace", "1:10"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tserve.main(["--smoke", "--scheduler", "--device", "cpu",
-                         *flag])
+        out = tserve.main(["--smoke", "--scheduler", "--device", "cpu",
+                           "--td", "quant", "--streams", "2", "--capacity",
+                           "2", "--prompt-len", "4", "--gen", "3", *flag])
+        assert out["requests"] == 2 and "p_x_one_measured" in out
+    assert "[serve/sched] trace: seed=1" in capsys.readouterr().out
 
 
 def test_synthetic_requests_match_reference():

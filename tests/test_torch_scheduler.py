@@ -185,6 +185,55 @@ def test_preemption_drains_and_readmits(params):
         base_out
 
 
+def test_preemption_replays_continuations_in_shared_steps(params,
+                                                         monkeypatch):
+    """After a drain the continuations replay their tokens together, in
+    the engine's own decode steps: max(tokens held) - 1 steps carry a
+    replaying row, the KV caches are made only at construction and at the
+    drain (no scratch cache), and the outputs are the fault-free ones."""
+    lens = [(4, 6), (5, 7), (3, 5), (6, 4)]
+    eng = _port_engine(params, capacity=2)
+    eng.run(_reqs(tsched, lens))
+    base = {rid: list(r.generated) for rid, r in eng.done.items()}
+    made = []
+    init = tsched.transformer.init_caches
+    monkeypatch.setattr(            # the slot caches (not a prefill's)
+        tsched.transformer, "init_caches",
+        lambda *a, **k: (k.get("per_row_idx") and made.append(a[0]))
+        or init(*a, **k))
+    eng = _port_engine(params, capacity=2)
+    held = []
+
+    def inject(step):
+        if step == 3 and not held:
+            held.append([len(s.request.generated) for s in eng.slots
+                         if not s.free])
+            raise ft.Preemption("injected")
+
+    eng.run(_reqs(tsched, lens), retry_policy=ft.RetryPolicy(backoff_s=0.0),
+            inject=inject)
+    assert held == [[4, 4]]
+    assert eng.replay_steps == 3
+    assert made == [2, 2]
+    assert all(not s.replay for s in eng.slots)
+    assert {rid: list(r.generated) for rid, r in eng.done.items()} == base
+
+
+def test_kv_plan_nets_out_the_parameters(params):
+    """The slots are sized against the device memory less the parameters'
+    bytes."""
+    from repro_torch.optim.adamw import tree_leaves_with_path
+    from repro_torch.roofline import model as troof
+    eng = _port_engine(params)
+    wbytes = sum(t.numel() * t.element_size()
+                 for _, t in tree_leaves_with_path(params[1]))
+    want = troof.plan_kv_cache(eng.cfg, 3, S_CACHE, block=8,
+                               weight_bytes=wbytes)
+    assert wbytes > 0 and eng.kv_plan == want
+    assert want.budget_bytes < troof.plan_kv_cache(
+        eng.cfg, 3, S_CACHE, block=8).budget_bytes
+
+
 def test_submit_rejects_overflowing_request(params):
     eng = _port_engine(params, capacity=1)
     with pytest.raises(ValueError, match="exceeds"):
@@ -235,16 +284,25 @@ def test_timings_cover_every_admission_and_decode_step(params):
 
 
 def test_unported_options_raise(params):
+    """The drift-adaptation options and `run(schedule=, trace=)` are
+    ported now: none of them raises NotImplementedError any more (their
+    parity is `tests/test_torch_drift.py`'s and `test_torch_chaos.py`'s)."""
     arch = _archs("quant")[1]
     for kw in (dict(adapt=True), dict(resolver=print),
-               dict(supply_resolver=print), dict(scripted_swaps=[])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsched.ContinuousBatchingEngine(arch, params=params[1],
-                                            device="cpu", **kw)
-    eng = _port_engine(params)
-    for kw in (dict(schedule=object()), dict(trace=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.run([], **kw)
+               dict(supply_resolver=print), dict(scripted_swaps=[]),
+               dict(drift_threshold=0.1, vdd_grid=(0.8, 0.6),
+                    supply_span=False)):
+        eng = tsched.ContinuousBatchingEngine(arch, params=params[1],
+                                              device="cpu", kv_block=8,
+                                              s_cache=S_CACHE, **kw)
+        assert eng.adapt == kw.get("adapt", False)
+    out = _port_engine(params).run(
+        _reqs(tsched, LENS[:2]), retry_policy=ft.RetryPolicy(backoff_s=0.0),
+        schedule=ft.FaultSchedule([ft.FaultEvent(1, "preempt")]),
+        trace=ft.TrafficTrace([ft.TraceSegment(steps=4, load=0.5)]))
+    assert out["requests"] == 2 and out["faults"] == [
+        {"step": 1, "kind": "preempt"}]
+    assert out["trace"]["total_steps"] == 4
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(params, monkeypatch):

@@ -138,7 +138,9 @@ def test_run_and_cli_on_cpu(capsys):
                          "--batch", "2", "--prompt-len", "5", "--gen", "3"])
     torch.testing.assert_close(again, ids)
     assert "[serve] prefill(2x5)" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tserve.main(["--smoke", "--scheduler", "--adapt", "--device", "cpu"])
+    out = tserve.main(["--smoke", "--scheduler", "--adapt", "--device",
+                       "cpu", "--streams", "2", "--capacity", "2",
+                       "--prompt-len", "4", "--gen", "3"])
+    assert out["requests"] == 2 and "adaptations" in out
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tcfgs.get("dbrx-132b")

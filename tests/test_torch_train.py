@@ -31,6 +31,7 @@ from repro.optim import adamw as jadamw
 from repro.tdsim import td_linear as jlin
 from repro.tdsim.policy import TDPolicy as JPolicy
 from repro_torch import prng
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import ShapeCfg as TShape
 from repro_torch.configs.base import TrainCfg as TTrain
 from repro_torch.data.pipeline import PrefetchLoader as TLoader
@@ -281,11 +282,10 @@ def test_remat_full_equals_none():
         step(tp, to, {k: torch.from_numpy(v) for k, v in batch.items()}, 0)
 
 
-def test_train_run_matches_reference_driver(monkeypatch, capsys):
+def test_train_run_matches_reference_driver(monkeypatch, capsys, tmp_path):
     """Both drivers, 3 steps of the qwen3-8b smoke model in td mode at
     float32 compute from the reference's init; the port's CLI on the CPU,
-    also at a scenario and corner and with --td-attn; the unported
-    --ckpt-dir raises."""
+    also at a scenario and corner and with --td-attn and --ckpt-dir."""
     ja, ta = archs("qwen3-8b", "td", "float32", n_micro=1)
     jp, tp = init_pair(ja)
     monkeypatch.setattr(jtrain, "get_api", lambda cfg: {
@@ -310,11 +310,14 @@ def test_train_run_matches_reference_driver(monkeypatch, capsys):
                           "--steps", "1", "--seq", "16", "--batch", "4",
                           "--device", "cpu"])
     assert len(losses) == 1 and np.all(np.isfinite(losses))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttrain.main(["--smoke", "--device", "cpu", "--ckpt-dir", "ckpt"])
+    losses = ttrain.main(["--smoke", "--device", "cpu", "--ckpt-dir",
+                          str(tmp_path), "--steps", "1", "--seq", "16",
+                          "--batch", "4"])
+    assert len(losses) == 1 and np.all(np.isfinite(losses))
     losses = ttrain.main(["--smoke", "--arch", "qwen3-8b", "--td", "td",
                           "--td-attn", "td", "--steps", "1", "--seq", "16",
                           "--batch", "4", "--device", "cpu"])
     assert len(losses) == 1 and np.all(np.isfinite(losses))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttrain.run(ta, TShape("t", 16, 4, "train"), 1, "ckpt", device="cpu")
+    _, losses = ttrain.run(ta, TShape("t", 16, 4, "train"), 1,
+                           str(tmp_path), ckpt_every=1, device="cpu")
+    assert len(losses) == 1 and ckpt.latest_steps(str(tmp_path)) == [1]
