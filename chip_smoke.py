@@ -56,6 +56,26 @@
    often as the path calls it, the tokens must be in range, every
    request finished, slot recycling must save decode steps on the
    serving gate's traffic, and the losses must be finite;
+   then the MoE decoder (`phase_moe`): granite-moe-1b-a400m at its
+   published widths and depth (24 layers, 32 experts top-8, each
+   projection of the experts one td_vmm launch over 32 lanes, w a lane),
+   td, served in the fixed batch above (host syncs a step counted), two
+   identical prefills bit-equal, the continuous-batching engine on the
+   first traffic (J/token, the meter's rows equal to its total), trained
+   on the batch above at the config's 2 microbatches and remat "dots" (3
+   td steps, 1 quant), then 2 td steps each at remat none and full (the
+   same losses and gradient norms; peak memory and step ms of the
+   three), one step's gradients summed in bf16 against the f32 sum cast
+   to bf16 (one bf16 ulp a leaf), the smoke MoE on the card against the
+   CPU (serve tokens, train losses), and the kernels at this path's
+   shapes: td_vmm's 32-lane expert calls at M 160, 60 and 8 bit for bit
+   against the plain version and 32 single launches, flash_attn at D 64
+   in bf16 (the CUDA-core path) and decode_gqa at D 64, g 2, timed
+   against SDPA; then `phase_dense_configs`: qwen2.5-3b and qwen3-4b at
+   their published widths and depths (36 layers each) served in a fixed
+   batch of 4 x 128 prompts and 8 new tokens, decode_gqa at g 8, D 128
+   (timed against SDPA) and td_vmm at their ragged contractions (K 2560,
+   9728, 11008) against the plain versions;
    then runs the paper's noise loop on full-width ResNet20-CIFAR
    (`phase_noise_loop`, 22 sites, n_chain 576): 150 quant-mode SGD steps
    on 512 synthetic images, the per-site batched sigma_max search (286
@@ -347,7 +367,9 @@ def kernel_us(fn, n: int = 20):
     """The device time of the kernels one call of ``fn`` launches, alone,
     from torch.profiler's CUPTI trace: (summed kernel durations per call in
     us, kernels per call), mean over ``n`` calls.  Unlike an event pair it
-    leaves out the launch's own cost on the device."""
+    leaves out the launch's own cost on the device.  None when three
+    traces in a row come back without the device's activity (CUPTI in a
+    sandbox): the number is then not measured."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -365,7 +387,7 @@ def kernel_us(fn, n: int = 20):
         if ks:
             return (sum(e.time_range.end - e.time_range.start
                         for e in ks) / n, len(ks) / n)
-    fail("kernel_us: three traces held no device time")
+    return None
 
 
 def in_turns(tag: str, label: str, fns: dict, reps: dict,
@@ -397,12 +419,16 @@ def in_turns(tag: str, label: str, fns: dict, reps: dict,
           + ", ".join(f"{n} {out[f'{n}_host_us']:.1f}"
                       for n in ("kernel", "library") if n in fns))
     if alone:
+        said = []
         for n in ("kernel", "library"):
             if n in fns:
-                out[f"{n}_alone_us"], out[f"{n}_kernels"] = kernel_us(fns[n])
-        print(f"[{tag}] {label}: kernels alone (CUPTI, warm L2): " + ", ".join(
-            f"{n} {out[f'{n}_alone_us']:.2f} us in {out[f'{n}_kernels']:g} "
-            f"kernel(s) a call" for n in ("kernel", "library") if n in fns))
+                got = kernel_us(fns[n])
+                said.append(f"{n} not measured (three CUPTI traces held no "
+                            "device time)" if got is None else
+                            f"{n} {got[0]:.2f} us in {got[1]:g} kernel(s) "
+                            "a call")
+        print(f"[{tag}] {label}: kernels alone (CUPTI, warm L2): "
+              + ", ".join(said))
     return out
 
 
@@ -922,8 +948,9 @@ def phase_flash(rows: list):
     """flash_attn against its plain version on the card (bf16, tolerance
     2e-2): the serve prefill and train microbatch shapes, ragged kv_len with
     a fully masked row and q_offset, non-causal, Sq around the query tiles,
-    g from 1 to 16, train_4k's microbatch and the engine's admissions (B 1
-    over the prompt bucket, both traffics); then device time in turns
+    g from 1 to 16, qwen2.5-3b's prefill (B 4, Sq 128, Hq 16, Hkv 2),
+    train_4k's microbatch and the engine's admissions (B 1 over the prompt
+    bucket, both traffics); then device time in turns
     with SDPA at the serve prefill, the train microbatch and train_4k."""
     import torch
     from repro_torch.kernels.flash_attn import flash_attn as fa
@@ -940,6 +967,11 @@ def phase_flash(rows: list):
                        [sq + 5, sq], 5, True))
     for hq in (8, 16, 24, 64, 128):             # g = 1, 2, 3, 8, 16
         checks.append((f"g {hq // 8}", 2, 40, 48, hq, 8, [48, 33], 3, True))
+    # phase_dense_configs' qwen2.5-3b prefill: 16 heads over 2 KV heads
+    dc = DENSE_CONFIGS
+    checks.append(("qwen2.5-3b prefill, g 8", dc["batch"], dc["prompt_len"],
+                   dc["prompt_len"] + dc["gen"], 16, 2,
+                   [dc["prompt_len"]] * dc["batch"], 0, True))
     checks.append(("train_4k microbatch", 1, 4096, 4096, 32, 8, [4096], 0,
                    True))
     for path, conf in ENGINE_PATHS.items():  # the engine's bucketed prefill
@@ -1164,8 +1196,10 @@ def phase_lsq_quant(rows: list):
     activation widths); and in bf16 chaos_train's (granite-8b's weights
     and its batch 2 x 32 activations) and the quant engines' activations
     (chaos_serve's and its long-context run's, at admission, B 1 over the
-    prompt bucket, and at decode, B = capacity).  Must be bit-exact
-    (max_abs_err 0)."""
+    prompt bucket, and at decode, B = capacity), and phase_moe's quant
+    training (granite-moe's 32-expert weight stacks and their activations
+    at capacity 160, its attention weights, lm_head and a microbatch's
+    activations).  Must be bit-exact (max_abs_err 0)."""
     import torch
     from repro_torch.kernels.lsq_quant import lsq_quant as lq
     from repro_torch.kernels.lsq_quant.ref import lsq_quant_ref
@@ -1203,13 +1237,26 @@ def phase_lsq_quant(rows: list):
                            ("decode", (conf["capacity"], 1))):
             chaos_bf16 += [(f"{path} {step} act d_model", (*lead, d)),
                            (f"{path} {step} act d_ff", (*lead, f))]
+    # bf16: phase_moe's quant training (granite-moe-1b-a400m, microbatches
+    # of 4 x 128): its expert stacks and their activations at capacity
+    # 160, its attention weights, lm_head and the attention's activations
+    m_d, m_f, m_e, m_v = 1024, 512, 32, 49408
+    moe_bf16 = [("granite-moe expert wi/wg", (m_e, m_d, m_f)),
+                ("granite-moe expert wo", (m_e, m_f, m_d)),
+                ("granite-moe expert act d_model", (m_e, 160, m_d)),
+                ("granite-moe expert act d_ff", (m_e, 160, m_f)),
+                ("granite-moe attn.wq/wo", (m_d, m_d)),
+                ("granite-moe attn.wk/wv", (m_d, 512)),
+                ("granite-moe lm_head", (m_d, m_v)),
+                ("granite-moe act d_model", (4, 128, m_d))]
     cases = [(0.25, -8, 7), (0.0371, 0, 255), (1e-9, -8, 7)]
     gen = torch.Generator(device="cuda").manual_seed(3)
     n_cases = 0
     max_err = 0.0
     for dtype, dtype_shapes in ((torch.float32,
                                  shapes + noise_loop + lm_sweep),
-                                (torch.bfloat16, shapes + chaos_bf16)):
+                                (torch.bfloat16,
+                                 shapes + chaos_bf16 + moe_bf16)):
         for label, shape in dtype_shapes:
             for s_val, qn, qp in cases:
                 x = torch.randn(shape, generator=gen, device="cuda") * 2.0
@@ -1235,8 +1282,9 @@ def phase_lsq_quant(rows: list):
                 del x, ties, got, want
     print(f"[lsq_quant] {n_cases} cases ({len(shapes)} shapes x 2 dtypes, "
           f"{len(noise_loop)} noise-loop and {len(lm_sweep)} LM-sweep shapes "
-          f"in f32, {len(chaos_bf16)} chaos shapes in bf16, x {len(cases)} "
-          f"step sizes): max |kernel - plain| "
+          f"in f32, {len(chaos_bf16)} chaos and {len(moe_bf16)} "
+          f"granite-moe shapes in bf16, x {len(cases)} step sizes): max "
+          f"|kernel - plain| "
           f"{max_err:g} (tolerance 0, bit patterns compared)")
     if max_err != 0.0:
         fail("lsq_quant is not bit-exact with its plain version")
@@ -1475,49 +1523,84 @@ def check_launches(path: str, counts: dict, expected: dict) -> None:
                  f"{expected[n]}")
 
 
-def phase_serve(launches: dict):
-    import torch
-    import repro_torch.configs as cfgs
-    from repro_torch.launch import serve, td_cli
-
-    arch = td_cli.apply_td_args(cfgs.get("qwen3-8b"), "td")
-    cfg = arch.model
-    mods = kernel_modules()
+def _counts_reset(mods: dict) -> None:
     for m in mods.values():
         m.launches = 0
+
+
+def serve_expected(cfg, steps: int, admissions: int = 1) -> dict:
+    """Launches of a td serve (fixed batch: one admission; an engine: one
+    a request): each forward runs 7 td_vmm launches a layer (wq, wk, wv,
+    wo; and wg, wi, wo, dense or over the experts' lanes) and lm_head's;
+    flash_attn once a layer an admission, decode_gqa once a layer a
+    decode step."""
+    L = cfg.n_layers
+    return {"td_vmm": (7 * L + 1) * (admissions + steps),
+            "flash_attn": L * admissions, "decode_gqa": L * steps,
+            "lsq_quant": 0}
+
+
+def _serve_full(tag: str, arch, batch: int, prompt_len: int, gen: int,
+                launches: dict, syncs: bool = False) -> None:
+    """`serve.run` of ``arch`` at full width, its launches counted, its
+    times and tokens printed and checked; with ``syncs`` also its host
+    syncs a step (`step_syncs`; none allowed)."""
+    import torch
+    from repro_torch.launch import serve
+    cfg = arch.model
+    mods = kernel_modules()
+    torch.cuda.reset_peak_memory_stats()
+    _counts_reset(mods)
     stats: dict = {}
     t0 = time.monotonic()
-    ids = serve.run(arch, SERVE["batch"], SERVE["prompt_len"], SERVE["gen"],
-                    seed=0, stats=stats)
+    out: dict = {}
+
+    def run():
+        out["ids"] = serve.run(arch, batch, prompt_len, gen, seed=0,
+                               stats=stats)
+    if syncs:
+        calib, calls = step_syncs(run)
+    else:
+        run()
+    ids = out["ids"]
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = {n: m.launches for n, m in mods.items()}
-    steps = SERVE["gen"] - 1                 # decode steps after prefill
-    expected = {"td_vmm": (7 * cfg.n_layers + 1) * (1 + steps),
-                "flash_attn": cfg.n_layers,
-                "decode_gqa": cfg.n_layers * steps, "lsq_quant": 0}
-    print(f"[serve] qwen3-8b td, {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, batch {SERVE['batch']}, prompt "
-          f"{SERVE['prompt_len']}, gen {SERVE['gen']}: wall {wall:.1f} s "
-          f"(init included), peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    print(f"[serve] prefill {stats['prefill_ms']:.1f} ms; decode median "
-          f"{statistics.median(stats['decode_ms']):.1f} ms/token "
-          f"(all: {[round(t, 1) for t in stats['decode_ms']]})")
-    check_launches("serve", counts, expected)
-    ids_cpu = ids.cpu()
-    if ids_cpu.shape != (SERVE["batch"], SERVE["gen"]) or \
-            int(ids_cpu.min()) < 0 or int(ids_cpu.max()) >= cfg.vocab:
-        fail(f"bad tokens {ids_cpu.shape} in [{int(ids_cpu.min())}, "
-             f"{int(ids_cpu.max())}]")
-    print(f"[serve] tokens[0]: {ids_cpu[0].tolist()}")
+    print(f"[{tag}] {cfg.name} td, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, "
+          f"batch {batch}, prompt {prompt_len}, gen {gen}: wall {wall:.1f} s "
+          f"(init and solve included), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[{tag}] prefill {stats['prefill_ms']:.1f} ms; decode median "
+          f"{statistics.median(stats['decode_ms']):.1f} ms/token (all: "
+          f"{[round(t, 1) for t in stats['decode_ms']]})")
+    if syncs:
+        print(f"[{tag}] host syncs (torch's sync debug mode; a calibrating "
+              f"blocking copy counts {calib}): prefill {calls['prefill']}, "
+              f"each decode step {calls['decode']}")
+        if any(calls["prefill"] + calls["decode"]):
+            fail(f"{tag}: a serve step waits for the device")
+    check_launches(tag, counts, serve_expected(cfg, gen - 1))
+    ids = ids.cpu()
+    if ids.shape != (batch, gen) or int(ids.min()) < 0 or \
+            int(ids.max()) >= cfg.vocab:
+        fail(f"{tag}: bad tokens {tuple(ids.shape)} in [{int(ids.min())}, "
+             f"{int(ids.max())}]")
+    print(f"[{tag}] tokens[0]: {ids[0].tolist()}")
     j = stats["j_per_token"]
-    print(f"[serve] J/token (the paper's circuit model at the solved "
+    print(f"[{tag}] J/token (the paper's circuit model at the solved "
           f"policy, not a card measurement): td {j['td']:.4e}, analog "
           f"{j['analog']:.4e}, digital {j['digital']:.4e}")
     if not all(math.isfinite(v) and v > 0 for v in j.values()):
-        fail(f"serve: J/token {j}")
-    launches["serve"] = counts
+        fail(f"{tag}: J/token {j}")
+    launches[tag] = counts
+
+
+def phase_serve(launches: dict):
+    import repro_torch.configs as cfgs
+    from repro_torch.launch import td_cli
+    _serve_full("serve", td_cli.apply_td_args(cfgs.get("qwen3-8b"), "td"),
+                SERVE["batch"], SERVE["prompt_len"], SERVE["gen"], launches)
 
 
 def serve_requests(cfg, conf: dict):
@@ -1611,7 +1694,6 @@ def phase_scheduler(launches: dict):
 
     arch = td_cli.apply_td_args(cfgs.get("qwen3-8b"), "td")
     cfg = arch.model
-    L = cfg.n_layers
     mods = kernel_modules()
     params = None                  # the first engine's seeded init, shared
     for path, conf in SCHED_PATHS.items():
@@ -1626,9 +1708,7 @@ def phase_scheduler(launches: dict):
             runs[mode] = (eng, out, counts)
         eng, out, counts = runs["continuous"]
         a, d = len(eng.admit_ms), eng.steps_run
-        check_launches(path, counts, {
-            "td_vmm": (7 * L + 1) * (a + d), "flash_attn": L * a,
-            "decode_gqa": L * d, "lsq_quant": 0})
+        check_launches(path, counts, serve_expected(eng.cfg, d, a))
         toks = [t for r in eng.done.values() for t in r.generated]
         want = {r.rid: r.max_new_tokens for r in serve_requests(cfg, conf)}
         if out["requests"] != conf["requests"] or a != conf["requests"] or \
@@ -1696,9 +1776,8 @@ def phase_scheduler_scenario(launches: dict):
              f"points, expected {len(SCENARIO_RUN['per_layer'])}")
     _sched_report("scheduler_scenario", "continuous", eng, out, peak)
     a, d = len(eng.admit_ms), eng.steps_run
-    check_launches("scheduler_scenario", counts, {
-        "td_vmm": (7 * L + 1) * (a + d), "flash_attn": L * a,
-        "decode_gqa": L * d, "lsq_quant": 0})
+    check_launches("scheduler_scenario", counts,
+                   serve_expected(eng.cfg, d, a))
     toks = [t for r in eng.done.values() for t in r.generated]
     if out["requests"] != SCHED["requests"] or min(toks) < 0 or \
             max(toks) >= arch.model.vocab:
@@ -1721,13 +1800,18 @@ def train_arch(mode: str):
     return td_cli.apply_td_args(arch, mode)
 
 
-def train_expected(cfg, n_micro: int, mode: str) -> dict:
+def train_expected(cfg, n_micro: int, mode: str,
+                   remat: str = "full") -> dict:
     """Launches of one train step: per microbatch the forward runs every
-    dense (7 a layer + lm_head) and, under remat, each layer's 7 denses and
-    its attention again in the backward; a td dense's STE backward runs
-    lsq_quant on x and w, a quant dense runs it in each forward."""
-    dense, rerun = 7 * cfg.n_layers + 1, 7 * cfg.n_layers
-    out = {"flash_attn": n_micro * 2 * cfg.n_layers, "decode_gqa": 0}
+    dense (7 a layer + lm_head; an MoE layer's wg, wi and wo are one lane
+    launch each over its experts) and, under remat "full" or "dots", each
+    layer's 7 denses and its attention again in the backward (neither is
+    a matmul "dots" keeps); a td dense's STE backward runs lsq_quant on x
+    and w, a quant dense runs it in each forward."""
+    dense = 7 * cfg.n_layers + 1
+    rerun = 7 * cfg.n_layers if remat in ("full", "dots") else 0
+    out = {"flash_attn": n_micro * (2 if rerun else 1) * cfg.n_layers,
+           "decode_gqa": 0}
     if mode == "td":
         out.update(td_vmm=n_micro * (dense + rerun),
                    lsq_quant=n_micro * 2 * dense)
@@ -3376,6 +3460,638 @@ def phase_chaos_train(launches: dict):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The MoE decoder and the config-only dense decoders at their published
+# widths and depths.  "moe": granite-moe-1b-a400m (24 layers, d 1024, 16
+# heads over 8 KV heads of 64, 32 experts top-8 of d_ff 512, vocab 49408)
+# in td mode, not cut: the fixed-batch serve of SERVE's shape, the
+# continuous-batching engine on SCHED's traffic, and training at the
+# config's 2 microbatches and remat "dots" on TRAIN's batch (8 x 128),
+# then one-off steps at remat none and full and with the bf16 gradient
+# sum.  "dense_configs": qwen2.5-3b and qwen3-4b (36 layers each) served in
+# a fixed batch of 4 x 128 prompts, 8 new tokens.
+MOE = dict(arch="granite-moe-1b-a400m", td_steps=3, quant_steps=1,
+           remat_steps=2)
+DENSE_CONFIGS = dict(archs=("qwen2.5-3b", "qwen3-4b"), batch=4,
+                     prompt_len=128, gen=8)
+
+
+def moe_arch(mode: str, remat: str | None = None, grad_dtype=None):
+    """granite-moe-1b-a400m at its published widths, depth and train
+    settings, in ``--td mode`` (``remat`` / ``grad_dtype`` override the
+    config's)."""
+    import repro_torch.configs as cfgs
+    from repro_torch.launch import td_cli
+    arch = td_cli.apply_td_args(cfgs.get(MOE["arch"]), mode)
+    train = arch.train
+    if remat is not None:
+        train = dataclasses.replace(train, remat=remat)
+    if grad_dtype is not None:
+        train = dataclasses.replace(train, grad_allreduce_dtype=grad_dtype)
+    return arch.replace(train=train)
+
+
+def _moe_train(tag: str, arch, steps: int, launches: dict) -> dict:
+    """`train.run` of ``arch`` on TRAIN's batch, launches checked against
+    `train_expected`, host syncs counted inside each step (none allowed);
+    returns its losses, grad norms, step ms and peak GiB."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import train
+    shape = ShapeCfg("cli", TRAIN["seq"], TRAIN["batch"], "train")
+    cfg, mode, remat = arch.model, arch.td.mode, arch.train.remat
+    n_micro = arch.microbatches_for(shape.name)
+    mods = kernel_modules()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _counts_reset(mods)
+    stats: dict = {}
+    t0 = time.monotonic()
+    out: dict = {}
+    calib, calls = step_syncs(lambda: out.update(losses=train.run(
+        arch, shape, steps, None, log_every=1, seed=0, stats=stats)[1]),
+        ("train",))
+    losses = out["losses"]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = {n: m.launches for n, m in mods.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [t * 1e3 for t in stats["step_s"]]
+    print(f"[{tag}] {cfg.name} {mode}, {cfg.n_layers} layers (not cut), "
+          f"batch {shape.global_batch} x {shape.seq_len} in {n_micro} "
+          f"microbatches, remat {remat}, grad sum "
+          f"{arch.train.grad_allreduce_dtype}, "
+          f"{arch.train.compute_dtype} compute: wall {wall:.1f} s (init "
+          f"included), peak memory {peak:.2f} GiB")
+    print(f"[{tag}] step ms {[round(t, 1) for t in step_ms]}; losses "
+          f"{losses}; grad norms {stats['grad_norm']}; host syncs inside "
+          f"each step {calls['train']} (torch's sync debug mode; a "
+          f"calibrating blocking copy counts {calib})")
+    if any(calls["train"]):
+        fail(f"{tag}: a train step waits for the device (host syncs "
+             f"{calls['train']})")
+    check_launches(tag, counts, {n: c * steps for n, c in train_expected(
+        cfg, n_micro, mode, remat).items()})
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"{tag}: losses {losses}")
+    launches[tag] = counts
+    return dict(losses=losses, grad_norms=stats["grad_norm"],
+                step_ms=step_ms, peak=peak)
+
+
+def _moe_grad_sums() -> None:
+    """One train step's gradients of full-width granite-moe (td, 2
+    microbatches, remat "dots") summed in float32 and in bfloat16, from
+    the same parameters, batch and key: each bf16 leaf within one bf16
+    ulp (at the leaf's largest magnitude) of the float32 sum cast to
+    bf16; then one bf16 step at 4 microbatches, held bit for bit to the
+    bf16 running sum of the microbatch gradients (caught by hooks on the
+    leaves).  `adamw.apply_updates` is replaced for the three steps by one
+    that keeps the gradients and leaves the parameters as they are."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.data.synthetic import DataCfg, SyntheticStream
+    from repro_torch.launch import steps
+    from repro_torch.models import common, get_api
+    from repro_torch.optim import adamw
+
+    shape = ShapeCfg("cli", TRAIN["seq"], TRAIN["batch"], "train")
+    archs = {g: moe_arch("td", grad_dtype=g)
+             for g in ("float32", "bfloat16")}
+    cfg = archs["float32"].model
+    pol = common.resolve_arch_policy(archs["float32"], device="cuda")
+    params = get_api(cfg)["init"](0, cfg, pol, device="cuda")
+    opt = adamw.init_opt_state(params)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticStream(
+        DataCfg(vocab=cfg.vocab, seq_len=shape.seq_len,
+                global_batch=shape.global_batch, seed=0)).batch(0).items()}
+    kept: dict = {}
+    update = adamw.apply_updates
+
+    def keep(p, grads, state, train_cfg):
+        kept["grads"] = [g for _, g in adamw.tree_leaves_with_path(grads)]
+        return p, state, {"grad_norm": adamw.global_norm(grads),
+                          "lr": torch.zeros(())}
+    solve = common.resolve_arch_policy
+    out = {}
+    try:
+        adamw.apply_updates = keep
+        common.resolve_arch_policy = lambda a, device=None: pol
+        for g, arch in archs.items():
+            ms = time.monotonic()
+            _, _, m = steps.build_train_step(arch, shape)(params, opt, batch,
+                                                          0)
+            torch.cuda.synchronize()
+            out[g] = (kept.pop("grads"), float(m["loss"]),
+                      float(m["grad_norm"]), (time.monotonic() - ms) * 1e3)
+    finally:
+        adamw.apply_updates = update
+        common.resolve_arch_policy = solve
+    (g32, l32, n32, ms32), (g16, l16, n16, ms16) = out["float32"], \
+        out["bfloat16"]
+    worst, n_leaves = 0.0, 0
+    for a, b in zip(g32, g16):
+        if b.dtype != torch.bfloat16 or a.dtype != torch.float32:
+            fail(f"moe grad sums: leaf dtypes {a.dtype}, {b.dtype}")
+        a16 = a.to(torch.bfloat16)
+        top = float(a16.float().abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+        diff = float((b.float() - a16.float()).abs().max())
+        ratio = diff / ulp if ulp else (0.0 if diff == 0 else math.inf)
+        worst = max(worst, ratio)
+        n_leaves += 1
+    print(f"[moe_grad_sum] {cfg.name} td, 2 microbatches, remat dots: loss "
+          f"{l32} (f32 sum) vs {l16} (bf16 sum), grad norm {n32} vs {n16}; "
+          f"step ms {ms32:.1f} vs {ms16:.1f}; {n_leaves} leaves, largest "
+          f"|bf16 sum - bf16(f32 sum)| {worst:.3f} bf16 ulps of the leaf's "
+          f"largest magnitude")
+    if l32 != l16 or worst > 1.0:
+        fail("moe grad sums: the bf16 sum is not within one bf16 ulp of the "
+             "f32 sum")
+    del g32, g16
+
+    # compute is bf16, so each microbatch's gradient is a bf16 value: over
+    # 2 microbatches the bf16 running sum equals the f32 sum cast to bf16
+    # and the check above cannot tell them apart.  Over 4 it can: the step's
+    # sum is held bit for bit to the bf16 running sum of the gradients that
+    # reach the leaves, microbatch by microbatch, and its leaves that differ
+    # from the f32 sum cast to bf16 are counted.
+    n_mb = 4
+    arch = archs["bfloat16"]
+    arch = arch.replace(train=dataclasses.replace(arch.train,
+                                                  n_microbatches=n_mb))
+    leaves = [p for _, p in adamw.tree_leaves_with_path(params)]
+    run16: list = [None] * len(leaves)
+    run32: list = [None] * len(leaves)
+
+    def caught(j):
+        def hook(p):
+            if run16[j] is None:
+                run16[j] = torch.zeros_like(p.grad, dtype=torch.bfloat16)
+                run32[j] = torch.zeros_like(p.grad)
+            run16[j].add_(p.grad.to(torch.bfloat16))
+            run32[j].add_(p.grad)
+        return hook
+    hooks = [p.requires_grad_(True).register_post_accumulate_grad_hook(
+        caught(j)) for j, p in enumerate(leaves)]
+    try:
+        adamw.apply_updates = keep
+        common.resolve_arch_policy = lambda a, device=None: pol
+        steps.build_train_step(arch, shape)(params, opt, batch, 0)
+        torch.cuda.synchronize()
+        g16 = kept.pop("grads")
+    finally:
+        adamw.apply_updates = update
+        common.resolve_arch_policy = solve
+        for h in hooks:
+            h.remove()
+    n_bad = n_apart = 0
+    for got, r16, r32 in zip(g16, run16, run32):
+        want = r16.div_(torch.full((), n_mb, dtype=torch.bfloat16,
+                                   device="cuda"))
+        n_bad += not _bits_equal(got, want)
+        n_apart += not _bits_equal(want, (r32 / n_mb).to(torch.bfloat16))
+    print(f"[moe_grad_sum] {n_mb} microbatches: {len(g16)} leaves, "
+          f"{n_bad} differ from the bf16 running sum of their microbatch "
+          f"gradients (tolerance 0, bit patterns compared); {n_apart} "
+          f"leaves where that sum differs from the f32 sum cast to bf16")
+    if n_bad:
+        fail(f"moe grad sums: {n_bad} leaves of the {n_mb}-microbatch bf16 "
+             "sum are not the bf16 running sum")
+    del g16, run16, run32, leaves, params, opt
+
+
+def _moe_small(pol_td0) -> None:
+    """The smoke MoE (granite-moe-1b-a400m's smoke config, f32) on the
+    card against the CPU, at a dropless capacity (``capacity_factor``
+    8.0): prefill + 5 greedy decode steps in td at sigma 0 (tokens equal,
+    logits within 1e-3), and two train steps in td at the solved policy
+    (losses rtol 1e-4, grad norms rtol 1e-3, as `phase_train_small`)."""
+    import torch
+    import repro_torch.configs as cfgs
+    from repro_torch.configs.base import ShapeCfg, TrainCfg
+    from repro_torch.data.synthetic import DataCfg, SyntheticStream
+    from repro_torch.launch import serve, steps, td_cli
+    from repro_torch.models import common, get_api
+    from repro_torch.optim import adamw
+
+    base = cfgs.get_smoke(MOE["arch"])
+    cfg = dataclasses.replace(base.model, moe=dataclasses.replace(
+        base.model.moe, capacity_factor=8.0))
+    arch = td_cli.apply_td_args(base.replace(model=cfg), "td").replace(
+        train=TrainCfg(n_microbatches=2, remat="dots",
+                       compute_dtype="float32"))
+    solved = common.resolve_arch_policy(arch, device="cuda")
+    solve = common.resolve_arch_policy
+    res = {}
+    toks = torch.from_numpy(serve.prompts(1, 2, 8, cfg.vocab))
+    stream = SyntheticStream(DataCfg(vocab=cfg.vocab, seq_len=16,
+                                     global_batch=4, seed=0))
+    for dev in ("cpu", "cuda"):
+        try:
+            common.resolve_arch_policy = lambda a, device=None: pol_td0
+            sshape = ShapeCfg("serve", 14, 2, "decode")
+            pre = steps.build_prefill_step(arch, sshape)
+            srv = steps.build_serve_step(arch, sshape)
+            common.resolve_arch_policy = lambda a, device=None: solved
+            trn = steps.build_train_step(arch, ShapeCfg("t", 16, 4, "train"))
+        finally:
+            common.resolve_arch_policy = solve
+        p = get_api(cfg)["init"](0, cfg, pol_td0, device="cpu")
+        p = _to(p, dev)
+        with torch.inference_mode():
+            logits, state = pre(p, {"tokens": toks.to(dev)})
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            out = [tok]
+            for _ in range(5):
+                tok, state = srv(p, tok, state)
+                out.append(tok)
+        opt = adamw.init_opt_state(p)
+        losses, gns = [], []
+        for i in range(2):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in stream.batch(i).items()}
+            p, opt, m = trn(p, opt, batch, i)
+            losses.append(float(m["loss"]))
+            gns.append(float(m["grad_norm"]))
+        res[dev] = (logits.float().cpu(), torch.cat(out, 1).cpu(), losses,
+                    gns)
+    (lc, tc, lsc, gc_), (lg, tg, lsg, gg) = res["cpu"], res["cuda"]
+    err = float((lc - lg).abs().max())
+    same = bool(torch.equal(tc, tg))
+    print(f"[moe_small] smoke MoE f32, capacity factor 8.0, card vs CPU: "
+          f"serve td sigma=0 tokens equal {same}, max |logit diff| "
+          f"{err:.3e} (tolerance 1e-3); train td solved, 2 steps, remat "
+          f"dots: losses {lsg} vs {lsc}, grad norms {gg} vs {gc_}")
+    ok = same and err <= 1e-3 and all(
+        abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lsg, lsc)) and all(
+        abs(a - b) <= 1e-3 * abs(b) for a, b in zip(gg, gc_))
+    if not ok:
+        fail("the smoke MoE on the card disagrees with the CPU run")
+
+
+def _moe_determinism() -> None:
+    """Two identical prefills of full-width granite-moe (td, bf16, batch
+    SERVE x prompt 128) on the card: logits and every layer's cache bit
+    for bit equal (the combine sums each token's slots in slot order,
+    without atomics)."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import common, get_api
+    arch = moe_arch("td")
+    cfg = arch.model
+    pol = common.resolve_arch_policy(arch, device="cuda")
+    params = get_api(cfg)["init"](0, cfg, pol, dtype=torch.bfloat16,
+                                  device="cuda")
+    shape = ShapeCfg("serve", SERVE["prompt_len"] + SERVE["gen"],
+                     SERVE["batch"], "decode")
+    pre = steps.build_prefill_step(arch, shape, device="cuda")
+    toks = torch.from_numpy(serve.prompts(0, SERVE["batch"],
+                                          SERVE["prompt_len"],
+                                          cfg.vocab)).cuda()
+    outs = []
+    with torch.inference_mode():
+        for _ in range(2):
+            logits, state = pre(params, {"tokens": toks})
+            outs.append((logits, state["layers"]))
+    torch.cuda.synchronize()
+    same = _bits_equal(outs[0][0], outs[1][0]) and all(
+        torch.equal(a[n], b[n]) for a, b in zip(outs[0][1], outs[1][1])
+        for n in ("k", "v"))
+    print(f"[moe_determinism] two full-width prefills (B {SERVE['batch']} x "
+          f"{SERVE['prompt_len']}): logits and caches bit-equal {same}")
+    if not same:
+        fail("moe: two identical prefills differ")
+    del outs, params
+
+
+# the MoE's expert matmuls as td_vmm lanes (32 experts, w a lane) at the
+# path's per-lane M: prefill and a train microbatch (512 tokens, cap 160),
+# the engine's admission (a prompt bucket of 192 tokens, cap 60) and every
+# decode step (batch 4 or the engine's 8 slots, cap = top_k = 8)
+MOE_LANES = [("prefill/train", 160), ("engine admission", 60),
+             ("decode", 8)]
+MOE_LANES_TIMED = ("prefill/train", "decode")
+
+
+def _event_ms(fn) -> float:
+    """One call of ``fn`` between an event pair (for a host-paced plain
+    version, which no spin covers)."""
+    import torch
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def _moe_kernel_checks(rows: list) -> None:
+    """The kernels at the MoE path's shapes, against their plain versions
+    on the card: td_vmm's 32-lane expert calls (wi/wg: K 1024, N 512; wo:
+    K 512, N 1024; w a lane, the solved sigma, a seed a lane) bit for bit
+    against the plain version and 32 single launches, timed at M 160 and
+    M 8 against the single launches; flash_attn at D 64 in bf16 (the
+    CUDA-core path: B 4, Sq 128, Hq 16, Hkv 8, the serve prefill, the
+    train microbatch and the engine's admission) and decode_gqa at D 64, g
+    2 (B 4, S 144; the engine's B 8, S 192), within the existing
+    tolerances, each timed against SDPA."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels.decode_gqa import decode_gqa as dg
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    from repro_torch.kernels.td_vmm import td_vmm as tv
+    from repro_torch.kernels.td_vmm.ref import derive_seed
+    from repro_torch.tdsim.policy import solve_td_policy
+
+    pol = solve_td_policy(4, 4, 576, None)
+    e, d, f = 32, 1024, 512
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    par = torch.tensor([[pol.sigma_chain, float(pol.tdc_q)]] * e,
+                       dtype=torch.float32, device="cuda")
+    seeds = torch.tensor([derive_seed(k) for k in prng.split((0, 20), e)],
+                         dtype=torch.int64, device="cuda")
+    kw = dict(bits_a=4, bits_w=4, n_chain=576)
+    err = 0.0
+    for label, m in MOE_LANES:
+        for nm, k, n in (("wi", d, f), ("wo", f, d)):
+            x, w = _codes(gen, (e, m, k), 4), _codes(gen, (e, k, n), 4)
+            want = tv.td_vmm_plain(x, w, par, seeds, **kw)
+            err = max(err, _lane_check(tv, f"moe {label} {nm}", x, w, par,
+                                       seeds, kw, want=want, tag="moe"))
+            if label in MOE_LANES_TIMED and nm == "wi":
+                # the plain version loops the lanes on the host: one call
+                # between an event pair before and one after the turns
+                plain = [_event_ms(lambda: tv.td_vmm_plain(
+                    x, w, par, seeds, **kw))]
+                t = in_turns("moe", f"td_vmm {label} {nm} lanes", {
+                    "kernel": lambda: tv.td_vmm(x, w, par, seeds, **kw),
+                    "singles": lambda: [tv.td_vmm(x[i], w[i], par[i],
+                                                  seeds[i:i + 1], **kw)
+                                        for i in range(e)]},
+                    {"kernel": 20, "singles": 5}, cold=m <= 8)
+                plain.append(_event_ms(lambda: tv.td_vmm_plain(
+                    x, w, par, seeds, **kw)))
+                t["plain_ms"] = statistics.median(plain)
+                b_ms, b_by = bound_ms(4 * (e * m * k + e * k * n + e * m * n)
+                                      + 16 * e, 2 * e * m * k * n * 4,
+                                      "int8")
+                plan = tv.td_vmm_plan(m, k, n, 576, 4)
+                print(f"[moe] td_vmm {label} {nm}: {e} lanes ({plan.route} "
+                      f"route): kernel {t['kernel_ms']:.5f} ms, {e} single "
+                      f"launches {t['singles_ms']:.5f} ms, plain "
+                      f"{t['plain_ms']:.4f} ms (event pair, before and "
+                      f"after: {plain[0]:.4f}, {plain[1]:.4f}), bound "
+                      f"{b_ms:.5f} ms "
+                      f"({b_by}): kernel at {b_ms / t['kernel_ms']:.1%} of "
+                      f"it")
+                rows.append(dict(
+                    name="td_vmm", route="cuda",
+                    source="src/repro_torch/csrc/td_vmm.cu",
+                    replaces="src/repro/kernels/td_vmm/td_vmm.py:110",
+                    max_abs_err=err, library_ms=None, ms=t["kernel_ms"],
+                    plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                    shape=f"moe {label} {nm}, lanes {e} x M {m} K {k} N {n} "
+                          f"bits 4/4, w a lane, solved sigma",
+                    timed={"singles_ms": t["singles_ms"]}))
+            del x, w, want
+    torch.cuda.empty_cache()
+
+    hq, hkv, hd = 16, 8, 64
+    s_cache = SERVE["prompt_len"] + SERVE["gen"]
+    f_err = 0.0
+    for label, b, sq, skv in (("prefill", 4, 128, s_cache),
+                              ("train microbatch", 4, 128, 128),
+                              ("engine admission", 1, slot_len(SCHED),
+                               slot_len(SCHED))):
+        q = _randn(gen, (b, sq, hq, hd))
+        k = _randn(gen, (b, skv, hkv, hd))
+        v = _randn(gen, (b, skv, hkv, hd))
+        args = (q, k, v, _i32([sq] * b), _i32([0]))
+        got = fa.flash_attn(*args)
+        want = fa.flash_attn_plain(*args)
+        torch.cuda.synchronize()
+        ferr, frac, ulp = _cmp(got, want)
+        print(f"[moe] flash_attn {label}: B={b} Sq={sq} Skv={skv} Hq={hq} "
+              f"Hkv={hkv} D={hd} bf16 (CUDA-core path): max |kernel - "
+              f"plain| {ferr:g}, in bf16 ulps {ulp:.3f}, differing "
+              f"{frac:.4f}")
+        if not _close(ferr, frac, ulp):
+            fail(f"flash_attn disagrees with its plain version (moe "
+                 f"{label}, D 64)")
+        f_err = max(f_err, ferr)
+        if label == "prefill":
+            qt = q.transpose(1, 2).contiguous()
+            kt = k[:, :sq].transpose(1, 2).contiguous()
+            vt = v[:, :sq].transpose(1, 2).contiguous()
+            t = in_turns("moe", "flash_attn prefill D 64", {
+                "plain": lambda: fa.flash_attn_plain(*args),
+                "kernel": lambda: fa.flash_attn(*args),
+                "library": lambda: _sdpa(qt, kt, vt, True)},
+                {"plain": 5, "kernel": 30, "library": 30}, alone=True)
+            b_ms, b_by = flash_bound(b, sq, [sq] * b, hq, hkv, hd, True)
+            print(f"[moe] flash_attn prefill D 64: kernel "
+                  f"{t['kernel_ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
+                  f"sdpa {t['library_ms']:.5f} ms, bound {b_ms:.5f} ms "
+                  f"({b_by}): kernel at {b_ms / t['kernel_ms']:.1%} of its "
+                  f"bound, {t['kernel_ms'] / t['library_ms']:.2f}x sdpa")
+            rows.append(dict(
+                name="flash_attn", route="cuda",
+                source="src/repro_torch/csrc/flash_attn.cu",
+                replaces="src/repro/kernels/flash_attn/flash_attn.py:55",
+                max_abs_err=f_err, ms=t["kernel_ms"], plain_ms=t["plain_ms"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=t["library_ms"],
+                shape=f"moe prefill B={b} Sq={sq} S_cache={skv} Hq={hq} "
+                      f"Hkv={hkv} D={hd} causal, CUDA-core path",
+                timed={k2: t[k2] for k2 in t if k2.endswith("_us")}))
+            del qt, kt, vt
+        del q, k, v, args, got, want
+    torch.cuda.empty_cache()
+    _decode_rows(rows, "moe", gen, hq, hkv, hd, [
+        ("decode", SERVE["batch"], s_cache,
+         SERVE["prompt_len"] + SERVE["gen"] // 2),
+        ("engine decode", SCHED["capacity"], slot_len(SCHED), None)])
+
+
+def _decode_rows(rows, tag, gen, hq, hkv, hd, cases) -> None:
+    """decode_gqa at (label, B, S, timed length or None) against its plain
+    version (`_decode_check`, several length patterns), and, where a
+    length is given, timed against SDPA with a cold L2: one row each."""
+    import torch
+    from repro_torch.kernels.decode_gqa import decode_gqa as dg
+    for label, b, s, length in cases:
+        q = _randn(gen, (b, hq, hd))
+        k = _randn(gen, (b, s, hkv, hd))
+        v = _randn(gen, (b, s, hkv, hd))
+        _, chunk = dg.split_plan(s, b, hkv)
+        err = 0.0
+        for lens in ([(37 * i) % s + 1 for i in range(b)], [s] * b,
+                     [[0, 1, chunk, s + 9][i % 4] for i in range(b)]):
+            err = max(err, _decode_check(
+                dg, f"{tag} {label} B={b} S={s} Hq={hq} Hkv={hkv} D={hd}",
+                q, k, v, lens, chunk))
+        if length is not None:
+            lt = _i32([length] * b)
+            qt = q[:, :, None].contiguous()
+            kt = k[:, :length].transpose(1, 2).contiguous()
+            vt = v[:, :length].transpose(1, 2).contiguous()
+            t = in_turns(tag, f"decode_gqa {label} g {hq // hkv} D {hd}", {
+                "plain": lambda: dg.decode_gqa_plain(q, k, v, lt),
+                "kernel": lambda: dg.decode_gqa(q, k, v, lt),
+                "library": lambda: _sdpa(qt, kt, vt, False)},
+                {"plain": 5, "kernel": 30, "library": 30}, cold=True,
+                alone=True)
+            b_ms, b_by = bound_ms(
+                2 * (2 * b * hq * hd + 2 * b * length * hkv * hd),
+                4 * b * hq * length * hd, "bf16")
+            print(f"[{tag}] decode_gqa {label}: B={b} S={s} length={length} "
+                  f"Hq={hq} Hkv={hkv} D={hd}: kernel {t['kernel_ms']:.5f} "
+                  f"ms, plain {t['plain_ms']:.5f} ms, sdpa "
+                  f"{t['library_ms']:.5f} ms, bound {b_ms:.5f} ms ({b_by}): "
+                  f"kernel at {b_ms / t['kernel_ms']:.1%} of its bound, "
+                  f"{t['kernel_ms'] / t['library_ms']:.2f}x sdpa")
+            rows.append(dict(
+                name="decode_gqa", route="cuda",
+                source="src/repro_torch/csrc/decode_gqa.cu",
+                replaces="src/repro/kernels/decode_gqa/decode_gqa.py:45",
+                max_abs_err=err, ms=t["kernel_ms"], plain_ms=t["plain_ms"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=t["library_ms"],
+                shape=f"{tag} {label} B={b} S={s} length={length} Hq={hq} "
+                      f"Hkv={hkv} D={hd}",
+                timed={k2: t[k2] for k2 in t if k2.endswith("_us")}))
+            del qt, kt, vt
+        del q, k, v
+    torch.cuda.empty_cache()
+
+
+def phase_moe(launches: dict, rows: list):
+    """The MoE decoder at full width and depth: granite-moe-1b-a400m, 24
+    layers, td mode (4/4, the port's solve), seeded bf16 weights.  Serves
+    SERVE's batch through `serve.run` (launches checked: the 32 experts of
+    each projection are one td_vmm launch) and counts its host syncs a
+    step, checks that two identical prefills are bit-equal, serves SCHED's
+    traffic through the continuous-batching engine (J/token, the meter's
+    rows equal to its total), trains TRAIN's batch at the config's remat
+    "dots" (3 td steps, 1 quant step), then 2 td steps each at remat none
+    and full (the same losses and grad norms as "dots", peak memory and
+    step ms beside it), compares the bf16 gradient sum with the f32 one,
+    runs the smoke MoE on the card against the CPU, and holds the kernels
+    to their plain versions at this path's shapes."""
+    import torch
+    from repro_torch.tdsim.policy import TDPolicy
+    t_phase = time.monotonic()
+    walls: dict = {}
+
+    def lap(part: str) -> None:
+        walls[part] = time.monotonic() - t_phase - sum(walls.values())
+    arch = moe_arch("td")
+    cfg = arch.model
+    _serve_full("moe_serve", arch, SERVE["batch"], SERVE["prompt_len"],
+                SERVE["gen"], launches, syncs=True)
+    torch.cuda.empty_cache()
+    _moe_determinism()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("serve")
+
+    mods = kernel_modules()
+    eng, out, counts, peak = _sched_run(arch, SCHED, None, True, mods)
+    _sched_report("moe_engine", "continuous", eng, out, peak)
+    a, d = len(eng.admit_ms), eng.steps_run
+    check_launches("moe_engine", counts, serve_expected(eng.cfg, d, a))
+    toks = [t for r in eng.done.values() for t in r.generated]
+    if out["requests"] != SCHED["requests"] or min(toks) < 0 or \
+            max(toks) >= cfg.vocab:
+        fail(f"moe_engine: {out['requests']} requests, tokens in "
+             f"[{min(toks)}, {max(toks)}]")
+    _energy_report("moe_engine", eng, out)
+    launches["moe_engine"] = counts
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("engine")
+
+    runs = {}
+    for mode in ("td", "quant"):
+        runs[("dots", mode)] = _moe_train(
+            f"moe_train_{mode}", moe_arch(mode), MOE[f"{mode}_steps"],
+            launches)
+    for remat in ("none", "full"):
+        runs[(remat, "td")] = _moe_train(
+            f"moe_train_td_{remat}", moe_arch("td", remat=remat),
+            MOE["remat_steps"], launches)
+    ref = runs[("dots", "td")]
+    n = MOE["remat_steps"]
+    for remat in ("none", "dots", "full"):
+        r = runs[(remat, "td")]
+        print(f"[moe_train] remat {remat}: peak {r['peak']:.2f} GiB, step "
+              f"{n} ms {r['step_ms'][n - 1]:.1f}, losses {r['losses'][:n]}, "
+              f"grad norms {r['grad_norms'][:n]}")
+        if r["losses"][:n] != ref["losses"][:n] or any(
+                abs(x - y) > 1e-5 * abs(y) for x, y in
+                zip(r["grad_norms"][:n], ref["grad_norms"][:n])):
+            fail(f"moe_train: remat {remat} gives other losses or grad "
+                 "norms than dots")
+    _moe_grad_sums()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("train")
+    _moe_small(TDPolicy(mode="td", n_chain=64))
+    lap("card vs CPU")
+    _moe_kernel_checks(rows)
+    lap("kernel checks")
+    print(f"[moe] phase wall {time.monotonic() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + ")")
+
+
+def phase_dense_configs(launches: dict, rows: list):
+    """The config-only dense decoders at full width and depth: qwen2.5-3b
+    (QKV bias, 16 heads over 2 KV heads: decode_gqa at g 8) and qwen3-4b
+    (qk-norm, 32 over 8), 36 layers each, td mode, served in a fixed
+    batch (launches checked); then decode_gqa at g 8, D 128 and td_vmm at
+    these models' ragged contractions (K 2560 and 9728 of qwen3-4b, 11008
+    of qwen2.5-3b against chains of 576) against their plain versions."""
+    import torch
+    import repro_torch.configs as cfgs
+    from repro_torch.kernels.td_vmm import td_vmm as tv
+    from repro_torch.launch import td_cli
+    from repro_torch.tdsim.policy import solve_td_policy
+    t_phase = time.monotonic()
+    conf = DENSE_CONFIGS
+    for name in conf["archs"]:
+        _serve_full(f"dense_configs {name}",
+                    td_cli.apply_td_args(cfgs.get(name), "td"),
+                    conf["batch"], conf["prompt_len"], conf["gen"], launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    s = conf["prompt_len"] + conf["gen"]
+    _decode_rows(rows, "dense_configs", gen, 16, 2, 128, [
+        ("qwen2.5-3b decode", conf["batch"], s,
+         conf["prompt_len"] + conf["gen"] // 2)])
+    pol = solve_td_policy(4, 4, 576, None)
+    solved = (pol.sigma_chain, float(pol.tdc_q))
+    seed = torch.tensor([33350994], dtype=torch.int64, device="cuda")
+    kw = dict(bits_a=4, bits_w=4, n_chain=576)
+    err = 0.0
+    m_pre = conf["batch"] * conf["prompt_len"]
+    for label, m, k, n in (
+            ("qwen3-4b prefill attn.wq", m_pre, 2560, 4096),
+            ("qwen3-4b prefill mlp.wi", m_pre, 2560, 9728),
+            ("qwen3-4b decode mlp.wo", conf["batch"], 9728, 2560),
+            ("qwen2.5-3b prefill mlp.wo", m_pre, 11008, 2048),
+            ("qwen2.5-3b decode attn.wk", conf["batch"], 2048, 256)):
+        x, w = _codes(gen, (m, k), 4), _codes(gen, (k, n), 4)
+        err = max(err, _td_vmm_check(tv, f"dense_configs {label}", x, w,
+                                     seed, kw, [solved]))
+        del x, w
+    tv_row = next(r for r in rows if r["name"] == "td_vmm")
+    tv_row["max_abs_err"] = max(tv_row["max_abs_err"], err)
+    print(f"[dense_configs] phase wall {time.monotonic() - t_phase:.1f} s")
+
+
 def _span_report(prof, span: str, which: slice, side: str = "host") -> None:
     """Device time of the kernels that start inside the ranges of ``span``
     (the ranges picked by ``which``), by kernel name.  A span also shows up
@@ -3430,18 +4146,22 @@ def _span_report(prof, span: str, which: slice, side: str = "host") -> None:
               f"x{count[name]:<5d} {name[:110]}")
 
 
-def serve_syncs(run) -> tuple[int, dict]:
-    """``run()`` (a `serve.run`) with the host syncs that torch reports
-    under ``torch.cuda.set_sync_debug_mode("warn")`` (a blocking copy
-    either way, ``.item()``; an explicit ``torch.cuda.synchronize`` is not
-    one; `sync_log`) counted per call of the prefill and the decode step.
-    Returns (the syncs of one calibrating blocking copy: 1 when the
-    counting works, {"prefill": [...], "decode": [...]})."""
+STEP_BUILDERS = {"prefill": "build_prefill_step",
+                 "decode": "build_serve_step", "train": "build_train_step"}
+
+
+def step_syncs(run, names=("prefill", "decode")) -> tuple[int, dict]:
+    """``run()`` (a `serve.run` or `train.run`) with the host syncs that
+    torch reports under ``torch.cuda.set_sync_debug_mode("warn")`` (a
+    blocking copy either way, ``.item()``; an explicit
+    ``torch.cuda.synchronize`` is not one; `sync_log`) counted per call of
+    the steps ``names`` (keys of `STEP_BUILDERS`).  Returns (the syncs of
+    one calibrating blocking copy: 1 when the counting works, {name:
+    [syncs of each call]})."""
     import torch
     from repro_torch.launch import steps
-    calls: dict = {"prefill": [], "decode": []}
-    builders = {"prefill": steps.build_prefill_step,
-                "decode": steps.build_serve_step}
+    calls: dict = {n: [] for n in names}
+    builders = {n: getattr(steps, STEP_BUILDERS[n]) for n in names}
 
     def counting(name, build, log):
         def built(*a, **kw):
@@ -3459,14 +4179,13 @@ def serve_syncs(run) -> tuple[int, dict]:
         try:
             torch.tensor([0.0], device="cuda")
             calib = len(log)
-            steps.build_prefill_step = counting("prefill",
-                                                builders["prefill"], log)
-            steps.build_serve_step = counting("decode", builders["decode"],
-                                              log)
+            for n in names:
+                setattr(steps, STEP_BUILDERS[n],
+                        counting(n, builders[n], log))
             run()
         finally:
-            steps.build_prefill_step = builders["prefill"]
-            steps.build_serve_step = builders["decode"]
+            for n in names:
+                setattr(steps, STEP_BUILDERS[n], builders[n])
     return calib, calls
 
 
@@ -3501,7 +4220,7 @@ def phase_profile():
             _span_report(prof, span, slice(None))
         del prof
         torch.cuda.empty_cache()
-        calib, calls = serve_syncs(lambda: serve.run(
+        calib, calls = step_syncs(lambda: serve.run(
             a, SERVE["batch"], SERVE["prompt_len"], 4, seed=0))
         print(f"[profile] serve {label}: host syncs (torch's sync debug "
               f"mode; a calibrating blocking copy counts {calib}): "
@@ -3531,6 +4250,7 @@ def phase_profile():
 
 
 def main() -> None:
+    t_start = time.monotonic()
     import_port()
     import torch
     if not torch.cuda.is_available():
@@ -3547,28 +4267,36 @@ def main() -> None:
     phase_small_reference()
     phase_train_small()
     rows: list = []
-    phase_td_vmm(rows)
-    phase_flash(rows)
-    phase_decode(rows)
-    phase_lsq_quant(rows)
+    walls: dict = {"build to train_small": time.monotonic() - t_start}
+
+    def timed(name: str, fn, *args) -> None:
+        t0 = time.monotonic()
+        fn(*args)
+        walls[name] = time.monotonic() - t0
+    for fn in (phase_td_vmm, phase_flash, phase_decode, phase_lsq_quant):
+        timed(fn.__name__[6:], fn, rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_by_path", "timed")
     flush_l2(release=True)
     launches: dict = {}
+    with_rows = (phase_moe, phase_dense_configs, phase_noise_loop,
+                 phase_td_attention, phase_drift_traces)
     for phase in (phase_serve, phase_scheduler, phase_scheduler_scenario,
-                  phase_train, lambda lc: phase_noise_loop(lc, rows),
-                  lambda lc: phase_td_attention(lc, rows),
-                  phase_lm_noise_sweep,
-                  lambda lc: phase_drift_traces(lc, rows), phase_chaos_serve,
-                  phase_chaos_train):
+                  phase_train, phase_moe, phase_dense_configs,
+                  phase_noise_loop, phase_td_attention, phase_lm_noise_sweep,
+                  phase_drift_traces, phase_chaos_serve, phase_chaos_train):
         gc.collect()           # engines wrapped by `_counted` form cycles
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        phase(launches)
+        timed(phase.__name__[6:], phase,
+              *((launches, rows) if phase in with_rows else (launches,)))
     gc.collect()
     torch.cuda.empty_cache()
-    phase_profile()
+    timed("profile", phase_profile)
+    print(f"[time] phase walls, s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items())
+        + f"; whole run {time.monotonic() - t_start:.1f}")
     for r in rows:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in launches.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -1,7 +1,9 @@
 """Architecture registry of the port: `--arch <id>` resolution.
 
-The dense decoders ``qwen3-8b`` and ``granite-8b`` are ported so far
-(ROADMAP §1 step 13 lists the other families); any other name raises.
+The dense decoders ``qwen3-8b``, ``granite-8b``, ``qwen2.5-3b`` and
+``qwen3-4b`` and the MoE decoder ``granite-moe-1b-a400m`` are ported so
+far (ROADMAP §1 step 13 lists the other families); any other name
+raises.
 """
 from __future__ import annotations
 
@@ -13,6 +15,9 @@ from repro_torch.configs.base import (ArchConfig, ModelCfg, MoECfg, RWKVCfg,
 
 _MODULES = {
     "granite-8b": "repro_torch.configs.granite_8b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
+    "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
 }
 

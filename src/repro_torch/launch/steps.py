@@ -1,7 +1,7 @@
 """Step builders (port of `repro/launch/steps.py`): train_step
 (microbatched gradient accumulation + AdamW), prefill_step and serve_step
-(one greedy decode step), and the continuous-batching engine's
-ragged-prefill and insert steps.
+(one greedy decode step), the continuous-batching engine's
+ragged-prefill and insert steps, and the forward-only loss eval.
 
 Each step casts the parameters to the compute dtype, as the reference's
 steps do.  `cast_tree` returns a leaf that already has that dtype as is,
@@ -32,11 +32,14 @@ def build_train_step(arch: ArchConfig, shape: ShapeCfg, device=None):
     The global batch splits into ``arch.microbatches_for(shape.name)``
     microbatches along dim 0; microbatch i runs under key
     ``fold_in(key(seed), i)`` (the key itself when there is one).
-    Gradients with respect to the stored float32 parameters accumulate in
-    their ``.grad`` (the reference sums them in ``grad_allreduce_dtype``,
-    float32 in every config; the compressed bf16 sum is not ported) and are
-    divided by the count, then `adamw.apply_updates` updates ``params`` and
-    ``opt_state`` in place.
+    Gradients with respect to the stored float32 parameters are summed over
+    the microbatches in ``grad_allreduce_dtype``: in float32 they
+    accumulate in their ``.grad``; in bfloat16 (the compressed sum) each
+    microbatch's float32 gradient is cast to bf16 and added, in microbatch
+    order, into a bf16 sum that starts at zero, as the reference's scan
+    does.  The sum is divided by the count in its dtype (a single
+    microbatch's gradient stays float32, as in the reference), then
+    `adamw.apply_updates` updates ``params`` and ``opt_state`` in place.
     Metrics are the microbatch means of loss and ce, and grad_norm and lr,
     all device tensors: the step itself never waits for the device."""
     cfg = arch.model
@@ -44,9 +47,9 @@ def build_train_step(arch: ArchConfig, shape: ShapeCfg, device=None):
     api = get_api(cfg)
     n_micro = arch.microbatches_for(shape.name)
     compute_dt = DTYPES[arch.train.compute_dtype]
-    if DTYPES[arch.train.grad_allreduce_dtype] != torch.float32:
-        raise NotImplementedError("grad_allreduce_dtype other than float32 "
-                                  "is not yet ported to repro_torch")
+    ar_dt = DTYPES[arch.train.grad_allreduce_dtype]
+    # float32 sums accumulate in .grad; others in sums of their own
+    own_sum = n_micro > 1 and ar_dt != torch.float32
 
     def loss_fn(params, mb, key):
         p_c = common.cast_tree(params, compute_dt)
@@ -66,13 +69,24 @@ def build_train_step(arch: ArchConfig, shape: ShapeCfg, device=None):
                     for k, v in batch.items()} for i in range(n_micro)]
             keys = [prng.fold_in(key, i) for i in range(n_micro)]
         mets = []
+        sums = [torch.zeros(p.shape, dtype=ar_dt, device=p.device)
+                for p in leaves] if own_sum else None
         for mb, k in zip(mbs, keys):
             loss, metrics = loss_fn(params, mb, k)
             loss.backward()
             mets.append({n: m.detach() for n, m in metrics.items()})
+            if own_sum:
+                for p, acc in zip(leaves, sums):
+                    acc.add_(p.grad.to(ar_dt))
+                    p.grad = None
         by_id = {}
-        for p in leaves:
-            by_id[id(p)] = p.grad.div_(n_micro) if n_micro > 1 else p.grad
+        for j, p in enumerate(leaves):
+            if own_sum:
+                by_id[id(p)] = sums[j].div_(torch.full(
+                    (), n_micro, dtype=ar_dt, device=p.device))
+            else:
+                by_id[id(p)] = (p.grad.div_(n_micro) if n_micro > 1
+                                else p.grad)
             p.grad = None
             p.requires_grad_(False)
         grads = adamw.tree_map(lambda p: by_id[id(p)], params)
@@ -203,3 +217,19 @@ def build_insert_step():
         return dst_state
 
     return insert_step
+
+
+def build_forward_eval(arch: ArchConfig):
+    """Forward-only loss eval (`repro/launch/steps.py:195-204`, the noise
+    runs on LMs): ``eval_step(params, batch, pol, key) -> metrics``, the
+    train loss's metrics of ``params`` as given (no cast) under the
+    caller's policy, no gradient kept."""
+    cfg = arch.model
+    api = get_api(cfg)
+
+    @torch.no_grad()
+    def eval_step(params, batch, pol, key):
+        _, metrics = api["train_loss"](params, batch, cfg, pol, key)
+        return metrics
+
+    return eval_step

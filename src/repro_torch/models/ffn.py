@@ -1,10 +1,22 @@
-"""SwiGLU dense MLP (port of the dense half of `repro/models/ffn.py`; the
-MoE FFN comes with the other families)."""
+"""FFNs (port of `repro/models/ffn.py`): the SwiGLU dense MLP and the
+top-k MoE with sort-based capacity dispatch.
+
+The MoE routes each token to its top-k experts, slots the (token, expert)
+pairs into a fixed per-expert capacity Cap = ceil(T k cf / E) by a stable
+sort (overflow dropped), runs the experts as E lanes of one batched matmul
+a projection (`td_linear.td_matmul_experts`: one td_vmm launch over the E
+lanes in td mode) and combines the slots weighted by router probability.
+The reference's sharding hints (`maybe_constrain`) have no counterpart on
+one card.
+"""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import MoECfg
 from repro_torch.models import common
+from repro_torch.quant import lsq
+from repro_torch.tdsim import td_linear
 
 
 def swiglu_init(gen: torch.Generator, d: int, d_ff: int, pol,
@@ -33,3 +45,129 @@ def swiglu(params: dict, x: torch.Tensor, pol, key=None,
             return common.dense(p, h, pol, common.fold_key(key, j))
     h = silu(dense(params["wg"], x, 0)) * dense(params["wi"], x, 1)
     return dense(params["wo"], h, 2)
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+def moe_init(gen: torch.Generator, d: int, moe: MoECfg, pol,
+             dtype=torch.float32, device=None) -> dict:
+    """Router (d, E) and expert stacks wi, wg (E, d, f) and wo (E, f, d)
+    with the reference's distributions; when quantized one LSQ step
+    ``s_wi`` / ``s_wg`` / ``s_wo`` a stack (from the whole stack) and one
+    ``s_a`` for all three.  Drawn in float32, stored in ``dtype``."""
+    e, f = moe.num_experts, moe.d_ff_expert
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device) * std
+
+    std = 1.0 / d ** 0.5
+    p = {"router": {"w": normal((d, e), std)},
+         "wi": normal((e, d, f), std),
+         "wg": normal((e, d, f), std),
+         "wo": normal((e, f, d), 1.0 / f ** 0.5)}
+    if pol.mode != "precise":
+        for nm in ("wi", "wg", "wo"):
+            p[f"s_{nm}"] = lsq.init_step_size(p[nm], pol.bits_w, signed=True)
+        p["s_a"] = torch.tensor(2.0 / (lsq.qrange(pol.bits_a, True)[1] ** 0.5),
+                                dtype=torch.float32, device=device)
+    return common.cast_tree(p, dtype)
+
+
+def _capacity(t: int, moe: MoECfg) -> int:
+    cap = int(-(-t * moe.top_k * moe.capacity_factor // moe.num_experts))
+    return max(moe.top_k, min(cap, t))
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` along the last dim: the k largest, descending, the
+    lower index first among equal values (a stable descending sort;
+    ``torch.topk`` promises no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _div(a: torch.Tensor, n: int) -> torch.Tensor:
+    """``a / n`` as a true division (on CUDA torch multiplies by 1/n for a
+    Python divisor); the divisor is filled on the device, not copied."""
+    return a / torch.full((), n, dtype=a.dtype, device=a.device)
+
+
+def moe_ffn(params: dict, x: torch.Tensor, moe: MoECfg, pol, key=None
+            ) -> tuple[torch.Tensor, dict]:
+    """x (B, S, d) -> (y, aux): aux holds the Switch load-balance loss
+    ``moe_aux``, the router z-loss ``moe_z`` and the dropped share of
+    (token, expert) pairs ``moe_dropped``, 0-d f32.
+
+    Capacity couples the rows of a batch: every token routes and takes
+    slots, padded ones too, and a token past its expert's capacity is
+    dropped, as in the reference.  The combine is deterministic: each
+    token sums its kept slots' contributions in slot order (expert id),
+    the reference's scatter-add order, in the experts' dtype, without
+    atomics; the empty slots (token 0 at weight 0) add exact zeros and are
+    skipped."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = moe.num_experts, moe.top_k
+    cap = _capacity(t, moe)
+    dev = x.device
+    xt = x.reshape(t, d)
+
+    logits = (xt @ params["router"]["w"]).to(torch.float32)       # (T, E)
+    ex = torch.exp(logits - logits.amax(-1, keepdim=True).detach())
+    probs = ex / ex.sum(-1, keepdim=True)
+    top_p, top_e = top_k(probs, k)                                # (T, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    # ---- sort-based slotting ---------------------------------------------
+    flat_e = top_e.reshape(-1)                                    # (T*k,)
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    group_start = torch.searchsorted(sorted_e,
+                                     torch.arange(e, device=dev))
+    rank = torch.arange(t * k, device=dev) - group_start[sorted_e]
+    keep = rank < cap
+    slot = torch.where(keep, sorted_e * cap + rank, e * cap)      # overflow
+    token_of = order // k
+    weight_of = top_p.reshape(-1)[order]
+    # kept slots are distinct; every overflow pair writes the extra slot,
+    # which is dropped
+    slot_token = torch.zeros(e * cap + 1, dtype=torch.int64,
+                             device=dev).scatter_(0, slot, token_of)[:-1]
+    slot_weight = torch.zeros(e * cap + 1, dtype=torch.float32,
+                              device=dev).scatter_(
+        0, slot, torch.where(keep, weight_of, 0.0))[:-1]
+    xs = xt[slot_token].reshape(e, cap, d)                        # (E, C, d)
+
+    # ---- experts: lanes of one matmul a projection ------------------------
+    def mm(h, nm, j):
+        return td_linear.td_matmul_experts(
+            h, params[nm], params.get("s_a"), params.get(f"s_{nm}"), pol,
+            common.fold_key(key, j))
+
+    h = silu(mm(xs, "wg", 0)) * mm(xs, "wi", 1)
+    ys = mm(h, "wo", 2)                                           # (E, C, d)
+
+    # ---- combine: each token's slots in slot order ------------------------
+    ys_flat = ys.reshape(e * cap, d) * slot_weight[:, None].to(ys.dtype)
+    pair_slot = torch.empty_like(slot).scatter_(0, order, slot)
+    pair_slot = torch.sort(pair_slot.reshape(t, k), dim=-1).values
+    kept = pair_slot < e * cap
+    contrib = ys_flat[torch.clamp(pair_slot, max=e * cap - 1)]    # (T, k, d)
+    y = torch.zeros((t, d), dtype=ys.dtype, device=dev)
+    for j in range(k):
+        y = torch.where(kept[:, j, None], y + contrib[:, j], y)
+    y = y.reshape(b, s, d).to(x.dtype)
+
+    # ---- aux losses --------------------------------------------------------
+    me = _div(probs.sum(0), t)                                    # (E,)
+    # counts (exact in f32) without bincount, which reads its size on the
+    # host
+    counts = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+        0, flat_e, torch.ones(t * k, dtype=torch.float32, device=dev))
+    ce = _div(counts, t * k)
+    aux = moe.aux_coef * e * (me * ce).sum()
+    zloss = moe.router_z_coef * _div(
+        (torch.logsumexp(logits, dim=-1) ** 2).sum(), t)
+    frac_dropped = 1.0 - _div(keep.to(torch.float32).sum(), t * k)
+    return y, {"moe_aux": aux, "moe_z": zloss, "moe_dropped": frac_dropped}

@@ -29,10 +29,18 @@ def _dec_init(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
 
 def _dec_train_loss(params, batch, cfg: ModelCfg, pol, key=None,
                     remat: str = "none"):
-    logits, _, _ = transformer.forward(params, batch, cfg, pol, key=key,
-                                       remat=remat)
+    logits, _, aux = transformer.forward(params, batch, cfg, pol, key=key,
+                                         remat=remat)
     loss = common.cross_entropy(logits, batch["labels"], batch.get("mask"))
-    return loss, {"ce": loss, "loss": loss}
+    metrics = {"ce": loss}
+    for k, v in aux.items():
+        # the MoE's router losses join the loss; its dropped share is only
+        # reported
+        if k.startswith("moe_") and k != "moe_dropped":
+            loss = loss + v
+        metrics[k] = v
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def _dec_prefill(params, batch, cfg: ModelCfg, pol, s_cache: int,
@@ -71,25 +79,33 @@ def _dec_decode(params, tok, state, cfg: ModelCfg, pol):
 # energy-meter ledger: every matmul per token, layer counts folded in
 # ---------------------------------------------------------------------------
 def matmul_shapes(cfg: ModelCfg) -> list[MatmulShape]:
-    """The matmuls one token runs through a dense decoder (attention
-    projections, the SwiGLU MLP, lm_head), each with its layer count, as
-    the reference's ledger lists them."""
-    if cfg.family != "decoder" or cfg.moe is not None or \
-            cfg.rwkv is not None or cfg.ssm is not None or \
+    """The matmuls one token runs through an attention decoder (attention
+    projections, the SwiGLU MLP or the MoE's top_k experts and router,
+    lm_head), each with its layer count, as the reference's ledger lists
+    them."""
+    if cfg.family != "decoder" or cfg.rwkv is not None or \
+            cfg.ssm is not None or \
             any(cfg.mixer_at(i) != "attn" for i in range(cfg.n_layers)):
         raise NotImplementedError(
-            f"matmul_shapes of {cfg.name!r}: only dense attention decoders "
-            "are ported (ROADMAP.md §1, step 13)")
+            f"matmul_shapes of {cfg.name!r}: only attention decoders, dense "
+            "and MoE, are ported (ROADMAP.md §1, step 13)")
     d, hd = cfg.d_model, cfg.hd
     hq, hkv, n = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
-    return [MatmulShape("attn.q", d, hq * hd, n),
-            MatmulShape("attn.k", d, hkv * hd, n),
-            MatmulShape("attn.v", d, hkv * hd, n),
-            MatmulShape("attn.o", hq * hd, d, n),
-            MatmulShape("mlp.wi", d, cfg.d_ff, n),
-            MatmulShape("mlp.wg", d, cfg.d_ff, n),
-            MatmulShape("mlp.wo", cfg.d_ff, d, n),
-            MatmulShape("lm_head", d, cfg.vocab, 1.0)]
+    out = [MatmulShape("attn.q", d, hq * hd, n),
+           MatmulShape("attn.k", d, hkv * hd, n),
+           MatmulShape("attn.v", d, hkv * hd, n),
+           MatmulShape("attn.o", hq * hd, d, n)]
+    if cfg.moe is not None:
+        f, act = cfg.moe.d_ff_expert, cfg.moe.top_k
+        out += [MatmulShape("moe.wi", d, f, n * act),
+                MatmulShape("moe.wg", d, f, n * act),
+                MatmulShape("moe.wo", f, d, n * act),
+                MatmulShape("moe.router", d, cfg.moe.num_experts, n)]
+    else:
+        out += [MatmulShape("mlp.wi", d, cfg.d_ff, n),
+                MatmulShape("mlp.wg", d, cfg.d_ff, n),
+                MatmulShape("mlp.wo", cfg.d_ff, d, n)]
+    return out + [MatmulShape("lm_head", d, cfg.vocab, 1.0)]
 
 
 _API = {

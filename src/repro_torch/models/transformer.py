@@ -1,12 +1,14 @@
-"""Decoder-only stack for the dense attention family (port of
+"""Decoder-only stack for the attention family, dense and MoE (port of
 `repro/models/transformer.py`), with the layer loop unrolled.
 
 Layer anatomy (pre-norm residual):
     x += attn(ln1(x))
-    x += swiglu(ln2(x))
+    x += ffn(ln2(x))        ffn in {swiglu, moe}
 
-The other mixers (mamba2, rwkv6, shared attention) and FFNs (MoE, RWKV
-channel mix), stub frontends and tied embeddings come with their families.
+The other mixers (mamba2, rwkv6, shared attention), the RWKV channel mix,
+per-layer FFN patterns, stub frontends and tied embeddings come with their
+families.  `forward` returns the layers' aux losses (the MoE's), summed
+in layer order.
 
 Keys: layer i's mixer denses draw their noise seeds under
 ``fold_key(key, 2i)``, its FFN under ``fold_key(key, 2i + 1)``, lm_head
@@ -24,6 +26,8 @@ from __future__ import annotations
 
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelCfg
@@ -38,8 +42,8 @@ def _check_supported(cfg: ModelCfg) -> None:
         unported.append(f"family {cfg.family!r}")
     if any(cfg.mixer_at(i) != "attn" for i in range(cfg.n_layers)):
         unported.append("non-attention mixers")
-    if cfg.moe is not None or cfg.rwkv is not None or cfg.ffn_pattern:
-        unported.append("non-SwiGLU FFNs")
+    if cfg.rwkv is not None or cfg.ffn_pattern:
+        unported.append("FFNs other than SwiGLU and MoE")
     if cfg.frontend is not None:
         unported.append("stub frontends")
     if cfg.tie_embeddings:
@@ -47,6 +51,10 @@ def _check_supported(cfg: ModelCfg) -> None:
     if unported:
         raise NotImplementedError(f"{cfg.name}: {', '.join(unported)} not "
                                   "yet ported (ROADMAP.md §1, step 13)")
+
+
+def _ffn_kind(cfg: ModelCfg) -> str:
+    return "moe" if cfg.moe is not None else "swiglu"
 
 
 def init_params(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
@@ -62,13 +70,16 @@ def init_params(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
     layers = []
     for i in range(cfg.n_layers):
         pol_i = common.pol_at(pol, i)
-        layers.append({
-            "ln1": common.rmsnorm_init(cfg.d_model, dtype, dev),
-            "ln2": common.rmsnorm_init(cfg.d_model, dtype, dev),
-            "attn": attention.attn_init(gen, cfg, pol_i, dtype, dev),
-            "mlp": ffn.swiglu_init(gen, cfg.d_model, cfg.d_ff, pol_i, dtype,
-                                   dev),
-        })
+        lp = {"ln1": common.rmsnorm_init(cfg.d_model, dtype, dev),
+              "ln2": common.rmsnorm_init(cfg.d_model, dtype, dev),
+              "attn": attention.attn_init(gen, cfg, pol_i, dtype, dev)}
+        if _ffn_kind(cfg) == "moe":
+            lp["moe"] = ffn.moe_init(gen, cfg.d_model, cfg.moe, pol_i, dtype,
+                                     dev)
+        else:
+            lp["mlp"] = ffn.swiglu_init(gen, cfg.d_model, cfg.d_ff, pol_i,
+                                        dtype, dev)
+        layers.append(lp)
     params["layers"] = layers
     params["final_norm"] = common.rmsnorm_init(cfg.d_model, dtype, dev)
     params["lm_head"] = common.dense_init(
@@ -78,13 +89,14 @@ def init_params(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
 
 
 # a layer's denses by key path (2i + part, j): the mixer's wq, wk, wv, wo
-# (part 0), the FFN's wg, wi, wo (part 1)
+# (part 0), the SwiGLU FFN's wg, wi, wo (part 1)
 _DENSES = ((0, 4), (1, 3))
 
 
 def _layer_apply(lp: dict, x: torch.Tensor, cfg: ModelCfg, dense, i: int,
                  positions: torch.Tensor, cache: dict | None, key,
-                 attn_pols=None) -> tuple[torch.Tensor, dict | None]:
+                 attn_pols=None, pol=None
+                 ) -> tuple[torch.Tensor, dict | None, dict]:
     def mix(p, h, j):
         return dense(i, (2 * i, j), p, h)
 
@@ -98,32 +110,64 @@ def _layer_apply(lp: dict, x: torch.Tensor, cfg: ModelCfg, dense, i: int,
                                        attn_pols=attn_pols, dense=mix)
     x = x + y
     h = common.rmsnorm(lp["ln2"], x, cfg.rms_eps)
-    return x + ffn.swiglu(lp["mlp"], h, None, dense=mlp), new_cache
+    if "moe" in lp:
+        y, aux = ffn.moe_ffn(lp["moe"], h, cfg.moe, common.pol_at(pol, i),
+                             common.fold_key(key, 2 * i + 1))
+        return x + y, new_cache, aux
+    return x + ffn.swiglu(lp["mlp"], h, None, dense=mlp), new_cache, {}
+
+
+# the matmuls without batch dims, in any dtype
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The reference's ``checkpoint_dots_with_no_batch_dims``: keep the
+    results of matmuls without batch dims, recompute everything else
+    (the batched expert products, attention, and every kernel launch,
+    which no dispatch sees)."""
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 def _walk(params: dict, x: torch.Tensor, cfg: ModelCfg, dense,
           positions: torch.Tensor, key=None, attn_pols=None,
           caches: list | None = None, remat: str = "none",
-          layers: range | None = None) -> tuple[torch.Tensor, list]:
+          layers: range | None = None, pol=None
+          ) -> tuple[torch.Tensor, list, dict]:
     """The decoder's layers in order (``layers``: a range of them, all by
     default), shared by `forward` and `forward_lanes`.  ``dense(i, fold,
     p, h)`` computes a dense of layer i with params p on h; ``fold`` is
     the dense's key path from the forward's key, ``(2i, j)`` for the
     mixer's j-th dense and ``(2i + 1, j)`` for the FFN's.  ``key`` seeds
-    TD attention (``fold_key(key, 2i, 4)``).  Returns (x, the layers' new
-    caches, None where a layer has no cache)."""
+    TD attention (``fold_key(key, 2i, 4)``) and the MoE's experts, which
+    run at ``pol_at(pol, i)`` (`ffn.moe_ffn`).  ``remat``: "full"
+    recomputes each layer in the backward from its input, "dots" keeps
+    its unbatched matmuls' results and recomputes the rest.  Returns (x,
+    the layers' new caches, None where a layer has no cache, the layers'
+    aux losses summed in layer order)."""
     new_caches: list = [None] * cfg.n_layers
+    aux_all: dict = {}
     for i in (range(cfg.n_layers) if layers is None else layers):
         cache = caches[i] if caches is not None else None
         args = (params["layers"][i], x, cfg, dense, i, positions, cache, key,
-                attn_pols)
-        if remat == "full":
-            x, new_caches[i] = torch.utils.checkpoint.checkpoint(
-                _layer_apply, *args, use_reentrant=False,
-                preserve_rng_state=False)
+                attn_pols, pol)
+        if remat == "none":
+            x, new_caches[i], aux = _layer_apply(*args)
         else:
-            x, new_caches[i] = _layer_apply(*args)
-    return x, new_caches
+            x, new_caches[i], aux = torch.utils.checkpoint.checkpoint(
+                _layer_apply, *args, use_reentrant=False,
+                preserve_rng_state=False,
+                **({"context_fn": _dots_contexts} if remat == "dots"
+                   else {}))
+        for name, v in aux.items():
+            aux_all[name] = aux_all[name] + v if name in aux_all else v
+    return x, new_caches, aux_all
 
 
 def _policy_dense(pol, key):
@@ -152,20 +196,25 @@ def forward(params: dict, batch: dict, cfg: ModelCfg, pol,
 
     ``remat="full"`` recomputes each layer in the backward
     (`torch.utils.checkpoint`, the reference's `jax.checkpoint`), keeping
-    only the layer inputs.  The recomputed td matmuls draw the same noise
-    as the first pass: the noise is a counter hash of the seed, with no
-    generator state to restore.  ``"dots"`` is not ported."""
+    only the layer inputs; ``"dots"`` (the reference's
+    ``checkpoint_dots_with_no_batch_dims``) keeps the results of the
+    matmuls without batch dims (``aten.mm`` / ``addmm``: the precise and
+    quant denses and the router) and recomputes the rest, td_vmm and the
+    attention kernels included (`torch.utils.checkpoint`'s selective
+    checkpointing).  The recomputed td matmuls draw the same noise as the
+    first pass: the noise is a counter hash of the seed, with no generator
+    state to restore."""
     _check_supported(cfg)
-    if remat not in ("none", "full"):
-        raise NotImplementedError(f"remat={remat!r} is not yet ported to "
-                                  "repro_torch (ported: none, full)")
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat={remat!r}: none, dots or full")
     x = common.embed(params["embed"], batch["tokens"])
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
-    x, new_caches = _walk(params, x, cfg, _policy_dense(pol, key), positions,
-                          key, common.pol_attn(pol), caches, remat)
+    x, new_caches, aux = _walk(params, x, cfg, _policy_dense(pol, key),
+                               positions, key, common.pol_attn(pol), caches,
+                               remat, pol=pol)
     logits = _head(params, x, cfg, common.pol_top(pol), key)
-    return logits, (new_caches if caches is not None else None), {}
+    return logits, (new_caches if caches is not None else None), aux
 
 
 @torch.no_grad()
@@ -186,6 +235,10 @@ def forward_lanes(params: dict, batch: dict, cfg: ModelCfg, base_pol,
     noisy layer costs one copy of ``sigma`` to the host a call, and the
     lanes' seeds of every dense one copy to the device."""
     _check_supported(cfg)
+    if _ffn_kind(cfg) != "swiglu":
+        raise NotImplementedError(
+            f"{cfg.name}: forward_lanes of an MoE decoder is not yet ported "
+            "(ROADMAP.md §1, item 7)")
     p_lanes, n_layers = len(keys), cfg.n_layers
     if tuple(sigma.shape) != (p_lanes, n_layers):
         raise ValueError(f"sigma {tuple(sigma.shape)} for {p_lanes} keys "
@@ -196,9 +249,9 @@ def forward_lanes(params: dict, batch: dict, cfg: ModelCfg, base_pol,
     b, s, d = x.shape
     dev = x.device
     positions = torch.arange(s, device=dev)
-    x, _ = _walk(params, x, cfg,
-                 _policy_dense(base_pol.replace(sigma_chain=0.0), None),
-                 positions, layers=range(first))
+    x, _, _ = _walk(params, x, cfg,
+                    _policy_dense(base_pol.replace(sigma_chain=0.0), None),
+                    positions, layers=range(first))
     # the seeds of every lane dense, a column each
     folds = [(2 * i + part, j) for i in range(first, n_layers)
              for part, n_dense in _DENSES for j in range(n_dense)]
@@ -217,8 +270,8 @@ def forward_lanes(params: dict, batch: dict, cfg: ModelCfg, base_pol,
         return y.reshape(*h.shape[:-1], y.shape[-1])
 
     x = x.expand(p_lanes, b, s, d).reshape(p_lanes * b, s, d)
-    x, _ = _walk(params, x, cfg, lane_dense, positions,
-                 layers=range(first, n_layers))
+    x, _, _ = _walk(params, x, cfg, lane_dense, positions,
+                    layers=range(first, n_layers))
     x = x.reshape(p_lanes, b, s, d)
     return torch.stack([_head(params, x[p], cfg, top_pol, keys[p])
                         for p in range(p_lanes)])

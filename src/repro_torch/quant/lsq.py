@@ -52,9 +52,10 @@ class _LSQFakeQuant(torch.autograd.Function):
     the lm_head weight of qwen3-8b that saves 2.5 GB of bf16 residuals."""
 
     @staticmethod
-    def forward(ctx, v, s, qn, qp):
+    def forward(ctx, v, s, qn, qp, lanes):
         ctx.save_for_backward(v, s)
         ctx.qrange = (qn, qp)
+        ctx.lanes = lanes
         return lsq_quant(v, s, qn, qp)
 
     @staticmethod
@@ -66,21 +67,28 @@ class _LSQFakeQuant(torch.autograd.Function):
         dv = torch.where(in_range, g, 0.0)
         ds_elem = torch.where(in_range, v_bar - vs, v_bar)
         # the reference computes the scale in float32 and applies it in the
-        # operands' dtype (a weakly typed scalar)
-        scale = np.float32(1.0) / np.sqrt(np.float32(vs.numel())
+        # operands' dtype (a weakly typed scalar); under its vmap each lane
+        # is scaled by its own size, and the lanes' steps are summed
+        lanes = ctx.lanes
+        scale = np.float32(1.0) / np.sqrt(np.float32(vs.numel() // lanes)
                                           * np.float32(max(qp, 1.0)))
         scale = torch.tensor(float(scale)).to(vs.dtype).item()
-        ds = (ds_elem * g).sum() * scale
-        return dv, ds.expand(s.shape), None, None
+        if lanes == 1:
+            ds = (ds_elem * g).sum() * scale
+        else:
+            ds = ((ds_elem * g).reshape(lanes, -1).sum(1) * scale).sum()
+        return dv, ds.expand(s.shape), None, None, None
 
 
-def lsq_fake_quant(v: torch.Tensor, s, bits: int,
-                   signed: bool) -> torch.Tensor:
+def lsq_fake_quant(v: torch.Tensor, s, bits: int, signed: bool,
+                   lanes: int = 1) -> torch.Tensor:
     """Differentiable LSQ fake-quant: clip(round(v/s)) * s, in the result
-    dtype of v and s."""
+    dtype of v and s.  ``lanes`` > 1: v's leading dim holds that many
+    lanes of the reference's ``jax.vmap`` over one shared s (the MoE's
+    experts), each lane's step gradient scaled by its own element count."""
     qn, qp = qrange(bits, signed)
     v, s = _promote(v, s)
-    return _LSQFakeQuant.apply(v, s, qn, qp)
+    return _LSQFakeQuant.apply(v, s, qn, qp, lanes)
 
 
 def lsq_quantize_int(v: torch.Tensor, s, bits: int,

@@ -19,12 +19,15 @@ seed is ``derive_seed(key)``.  With ``key=None`` it is
 `td_matmul_lanes` / `linear_lanes` are the reference's ``jax.vmap`` of
 ``_td_matmul_ste`` over P lanes (the batched noise search's probes): each
 lane its own x, sigma, tdc_q and seed over one w (or one w a lane), in one
-td_vmm launch.  They are forward-only.
+td_vmm launch.  They are forward-only.  `td_matmul_experts` is the
+MoE's ``jax.vmap`` of ``td_matmul`` over its experts (one w a lane), with
+the lanes' STE backward (`_TDLanesSTE`).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels.td_vmm import ops as td_ops
 from repro_torch.kernels.td_vmm import ref as td_ref
 from repro_torch.quant import bitserial, lsq
@@ -88,11 +91,12 @@ def td_matmul_int(x_int: torch.Tensor, w_int: torch.Tensor, pol: TDPolicy,
     return main - corr_w - corr_x + k * ox * ow
 
 
-def _fq_matmul(x, w, s_a, s_w, bits_a: int, bits_w: int):
+def _fq_matmul(x, w, s_a, s_w, bits_a: int, bits_w: int, lanes: int = 1):
     """Differentiable fake-quant LSQ matmul: the STE backward function and
-    the forward of "quant" mode."""
-    x_fq = lsq.lsq_fake_quant(x, s_a, bits_a, signed=True)
-    w_fq = lsq.lsq_fake_quant(w, s_w, bits_w, signed=True)
+    the forward of "quant" mode.  ``lanes`` > 1: x (E, ..., K) and w
+    (E, K, N) are E lanes sharing s_a and s_w (`td_matmul_experts`)."""
+    x_fq = lsq.lsq_fake_quant(x, s_a, bits_a, signed=True, lanes=lanes)
+    w_fq = lsq.lsq_fake_quant(w, s_w, bits_w, signed=True, lanes=lanes)
     return x_fq @ w_fq
 
 
@@ -161,6 +165,76 @@ def td_codes_lanes(x_int: torch.Tensor, w: torch.Tensor, s_a, s_w,
     y_int = td_ops.td_vmm_lanes(x_int, w_int, pol, sigma, tdc_q, seeds)
     y = y_int * (torch.clamp(s_a, min=1e-8) * torch.clamp(s_w, min=1e-8))
     return y.to(dtype)
+
+
+class _TDLanesSTE(torch.autograd.Function):
+    """`_TDMatmulSTE` over E lanes with one w a lane: the forward is one
+    `td_matmul_lanes` launch, the backward the fake-quant gradient of every
+    lane at once (`_fq_matmul` batched over the lanes, s_a and s_w shared,
+    so their gradients sum over the lanes as under the reference's vmap).
+    sigma, q and the seeds get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, s_a, s_w, pol: TDPolicy, sigma, tdc_q, seeds):
+        ctx.save_for_backward(x, w, s_a, s_w)
+        ctx.bits = (pol.bits_a, pol.bits_w)
+        return td_matmul_lanes(x, w, s_a, s_w, pol, sigma, tdc_q, seeds)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in saved]
+            y = _fq_matmul(*leaves, *ctx.bits, lanes=saved[1].shape[0])
+            grads = torch.autograd.grad(y, leaves, g.to(y.dtype))
+        return (*grads, None, None, None, None)
+
+
+_seeds_memo: dict[tuple, torch.Tensor] = {}
+
+
+def _lane_seeds(seeds: tuple, device) -> torch.Tensor:
+    """The (E,) int64 device tensor of ``seeds``, memoized for the keyless
+    calls of serving (every lane at ``derive_seed((0, 0))``).  Keyed seeds
+    (training) change at every call; they go to the card by a
+    non-blocking copy from pinned memory, as a plain copy from the host
+    would wait for the device."""
+    device = torch.device(device)
+    key = (seeds, device)
+    t = _seeds_memo.get(key)
+    if t is None:
+        t = torch.tensor(seeds, dtype=torch.int64)
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        else:
+            t = t.to(device)
+        if len(set(seeds)) == 1:
+            _seeds_memo[key] = t
+    return t
+
+
+def td_matmul_experts(x: torch.Tensor, w: torch.Tensor, s_a, s_w,
+                      pol: TDPolicy, key=None) -> torch.Tensor:
+    """The MoE's expert matmul, the reference's ``jax.vmap`` of
+    ``td_matmul`` over the E experts: x (E, C, K) @ w (E, K, N) ->
+    (E, C, N), s_a and s_w one for the stack.  "precise" is the batched
+    product; "quant" the batched `_fq_matmul`; "td" one td_vmm launch over
+    the E lanes (w a lane, every lane at the policy's sigma and tdc_q),
+    lane e seeded by ``derive_seed(split(key, E)[e])`` (``(0, 0)`` for
+    every lane when ``key`` is None), with the lanes' STE backward."""
+    e = w.shape[0]
+    if pol.mode == "precise":
+        return torch.matmul(x, w)
+    if pol.mode == "quant":
+        return _fq_matmul(x, w, s_a, s_w, pol.bits_a, pol.bits_w, lanes=e)
+    if pol.mode != "td":
+        raise ValueError(f"unknown td mode {pol.mode!r}")
+    keys = [(0, 0)] * e if key is None else prng.split(key, e)
+    seeds = _lane_seeds(tuple(td_ref.derive_seed(k) for k in keys),
+                        x.device)
+    ops = td_ops.policy_params(pol, x.device)
+    return _TDLanesSTE.apply(x, w, s_a, s_w, pol, ops[0].expand(e),
+                             ops[1].expand(e), seeds)
 
 
 def linear(params: dict, x: torch.Tensor, pol: TDPolicy,

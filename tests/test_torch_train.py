@@ -9,8 +9,10 @@ agree to rtol 1e-6 / atol 1e-9 in float32; td_matmul's gradients (the
 fake-quant matmul's, f32 products summed in another order) to rtol 1e-5 /
 atol 1e-6, and its noisy forward as `tests/test_torch_td_vmm.py` holds it
 (rare TDC flips of one step); flash attention's gradients, chunked or
-not (the einsums run at other shapes), to rtol 1e-5 / atol 1e-6; remat "full" and "none" give bit-identical port results; the
-driver's float32 losses agree to rtol 1e-5 with the reference driver.
+not (the einsums run at other shapes), to rtol 1e-5 / atol 1e-6; remat
+"full", "dots" and "none" give bit-identical port results; the train
+loop's float32 losses (`launch.train.run`) agree to rtol 1e-5 with the
+reference's.
 """
 import numpy as np
 import pytest
@@ -259,7 +261,7 @@ def test_chunked_recompute_matches_unchunked_and_reference():
 # ---------------------------------------------------------------------------
 def test_remat_full_equals_none():
     results = []
-    for remat in ("full", "none"):
+    for remat in ("full", "none", "dots"):
         _, ta = archs("qwen3-8b", "td", "float32", remat=remat)
         _, tp = init_pair(archs("qwen3-8b", "td", "float32")[0])
         to = tadamw.init_opt_state(tp)
@@ -272,14 +274,11 @@ def test_remat_full_equals_none():
         results.append((float(m["loss"]), float(m["grad_norm"]),
                         [p.clone() for _, p in
                          tadamw.tree_leaves_with_path(tp)]))
-    assert results[0][:2] == results[1][:2]
-    for a, b in zip(results[0][2], results[1][2]):
-        assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="dots"):
-        _, ta = archs("qwen3-8b", "td", "float32", remat="dots")
-        step = tsteps.build_train_step(ta, TShape("t", 16, 4, "train"),
-                                       device="cpu")
-        step(tp, to, {k: torch.from_numpy(v) for k, v in batch.items()}, 0)
+    # "full" and "dots" against "none"
+    for other in (results[0], results[2]):
+        assert other[:2] == results[1][:2]
+        for a, b in zip(other[2], results[1][2]):
+            assert torch.equal(a, b)
 
 
 def test_train_run_matches_reference_driver(monkeypatch, capsys, tmp_path):

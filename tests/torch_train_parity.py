@@ -30,9 +30,11 @@ BATCH, SEQ = 4, 16
 
 
 def archs(name: str, mode: str, dtype: str, n_micro: int = 2,
-          remat: str = "full", n_layers: int | None = None):
+          remat: str = "full", n_layers: int | None = None,
+          grad_dtype: str = "float32"):
     """(reference arch, port arch): the smoke config of ``name`` with
-    ``--td mode`` and the given train settings."""
+    ``--td mode`` and the given train settings (``grad_dtype``: the
+    microbatch gradient sum's, ``grad_allreduce_dtype``)."""
     pair = []
     for cfgs, td, train in ((jcfgs, JTD, JTrain), (tcfgs, TTD, TTrain)):
         a = cfgs.get_smoke(name)
@@ -42,7 +44,8 @@ def archs(name: str, mode: str, dtype: str, n_micro: int = 2,
         pair.append(a.replace(
             td=td(mode=mode, n_chain=min(576, a.model.d_model)),
             train=train(n_microbatches=n_micro, remat=remat,
-                        compute_dtype=dtype)))
+                        compute_dtype=dtype,
+                        grad_allreduce_dtype=grad_dtype)))
     return tuple(pair)
 
 
@@ -123,3 +126,15 @@ def assert_params_close(jp, tp, lrs, atol: float, max_flip_share: float):
         n_all += d.size
         n_far += int(far.sum())
     assert n_far <= max_flip_share * n_all, (n_far, n_all)
+
+
+def check_float32_steps(ja, ta, monkeypatch):
+    """Two jitted reference steps against two port steps in float32 with
+    the tolerances of `tests/test_torch_train_step.py`: losses rtol 1e-6,
+    gradient norms rtol 1e-5, parameters within 1e-7 + 1e-6 relative with
+    at most 0.1% of entries allowed AdamW's sign flip."""
+    out, jp, tp = run_both(ja, ta, 2, jit=True, monkeypatch=monkeypatch)
+    assert np.all(np.isfinite(out["tl"]))
+    np.testing.assert_allclose(out["tl"], out["jl"], rtol=1e-6)
+    np.testing.assert_allclose(out["tg"], out["jg"], rtol=1e-5)
+    assert_params_close(jp, tp, out["lr"], atol=1e-7, max_flip_share=1e-3)
