@@ -75,7 +75,28 @@
    their published widths and depths (36 layers each) served in a fixed
    batch of 4 x 128 prompts and 8 new tokens, decode_gqa at g 8, D 128
    (timed against SDPA) and td_vmm at their ragged contractions (K 2560,
-   9728, 11008) against the plain versions;
+   9728, 11008) against the plain versions; then `phase_encdec`:
+   seamless-m4t-large-v2 at its published widths and depth (24 encoder
+   + 24 decoder layers, 2.04B parameters), td, served in the fixed batch
+   above with 64 frames of stub audio embeddings, then over a long
+   memory of 4 x 2048 frames (prompt 128, 8 decode steps:
+   cross-attention at Skv 2048, Sq 1) through the prefill and serve
+   steps, trained at its 4 microbatches and remat full (3 td steps, 1
+   quant; 16 frames a row), the smoke model on the card against the CPU,
+   and the kernels at its shapes (td_vmm at lm_head's N 256256 and over
+   B x frames rows; flash_attn at D 64, g 1: the encoder, the decoder,
+   the cross-attention at Sq 128 and 1, the training's f32 encoder and
+   bf16-against-f32 cross-attention; decode_gqa at D 64, g 1; lsq_quant
+   on the 1024 x 256256 lm_head weight), host syncs a step counted in
+   every serve and train step; then `phase_frontend`: internvl2-26b's
+   backbone at its published widths and depth (48 layers, 19.9B
+   parameters, bf16), td, served with 64 patches of stub vision
+   embeddings (8 new tokens), one prefill of 4 x (1024 patches + 128
+   tokens), trained cut to 2 layers (1 td step, 1 quant step, its 16
+   microbatches over a batch of 16 x 128), the smoke model and qwen3-8b's
+   smoke model with tied embeddings on the card against the CPU, and the
+   kernels at its shapes (td_vmm at the adapter, K 3200, and lm_head, N
+   92672; flash_attn and decode_gqa at D 128, g 6);
    then runs the paper's noise loop on full-width ResNet20-CIFAR
    (`phase_noise_loop`, 22 sites, n_chain 576): 150 quant-mode SGD steps
    on 512 synthetic images, the per-site batched sigma_max search (286
@@ -111,7 +132,8 @@
    bit for bit; flash_attn's f32 path at batch 8, 24 and 104);
    then fault tolerance and drift adaptation, at the smoke traffic of the
    reference's benches on full-width models: `phase_drift_traces`
-   (`benchmarks/bench_drift_traces.py`: 36-layer qwen3-8b, td at
+   (`benchmarks/bench_drift_traces.py`: qwen3-8b cut to 4 layers
+   (`FT_LAYERS`, as in `phase_chaos_serve`), td at
    sigma_max 2.0, 8 streams into capacity 2, the diurnal and bursty
    traces, each through the adaptive engine and its `scripted_swaps`
    replay, beside the plain engine on the same requests: zero lost, an
@@ -1531,11 +1553,25 @@ def _counts_reset(mods: dict) -> None:
 def serve_expected(cfg, steps: int, admissions: int = 1) -> dict:
     """Launches of a td serve (fixed batch: one admission; an engine: one
     a request): each forward runs 7 td_vmm launches a layer (wq, wk, wv,
-    wo; and wg, wi, wo, dense or over the experts' lanes) and lm_head's;
-    flash_attn once a layer an admission, decode_gqa once a layer a
-    decode step."""
+    wo; and wg, wi, wo, dense or over the experts' lanes) and lm_head's
+    (none with tied embeddings), a prefill also a stub frontend's
+    adapter; flash_attn once a layer an admission, decode_gqa once a
+    layer a decode step.  An enc-dec model's prefill runs the adapter,
+    7 a layer of its encoder, 11 a decoder layer (self-attention,
+    cross-attention, SwiGLU) and lm_head, each decode step the decoder
+    again (the cross-attention's K and V recomputed from the encoder's
+    output); flash_attn runs the encoder's and both decoder attentions
+    in a prefill and the cross-attention (Sq 1) in each decode step."""
     L = cfg.n_layers
-    return {"td_vmm": (7 * L + 1) * (admissions + steps),
+    if cfg.family == "encdec":
+        le = cfg.n_enc_layers or L
+        return {"td_vmm": admissions * (2 + 7 * le + 11 * L)
+                + steps * (11 * L + 1),
+                "flash_attn": admissions * (le + 2 * L) + steps * L,
+                "decode_gqa": L * steps, "lsq_quant": 0}
+    head = 0 if cfg.tie_embeddings else 1
+    adapter = admissions if cfg.frontend is not None else 0
+    return {"td_vmm": (7 * L + head) * (admissions + steps) + adapter,
             "flash_attn": L * admissions, "decode_gqa": L * steps,
             "lsq_quant": 0}
 
@@ -1789,15 +1825,19 @@ def phase_scheduler_scenario(launches: dict):
     torch.cuda.empty_cache()
 
 
-def train_arch(mode: str):
-    """qwen3-8b at its published widths and train settings, cut to
-    TRAIN["layers"] layers, in ``--td mode``."""
+def family_arch(name: str, mode: str | None, n_layers: int | None = None):
+    """``name`` at its published widths and train settings in ``--td
+    mode`` (None: the config's), cut to ``n_layers`` layers when given
+    (train: qwen3-8b cut to TRAIN["layers"])."""
     import repro_torch.configs as cfgs
     from repro_torch.launch import td_cli
-    arch = cfgs.get("qwen3-8b")
-    arch = arch.replace(model=dataclasses.replace(
-        arch.model, n_layers=TRAIN["layers"]))
+    arch = cfgs.get(name)
+    if n_layers is not None:
+        arch = arch.replace(model=dataclasses.replace(
+            arch.model, n_layers=n_layers))
     return td_cli.apply_td_args(arch, mode)
+
+
 
 
 def train_expected(cfg, n_micro: int, mode: str,
@@ -1807,10 +1847,22 @@ def train_expected(cfg, n_micro: int, mode: str,
     launch each over its experts) and, under remat "full" or "dots", each
     layer's 7 denses and its attention again in the backward (neither is
     a matmul "dots" keeps); a td dense's STE backward runs lsq_quant on x
-    and w, a quant dense runs it in each forward."""
-    dense = 7 * cfg.n_layers + 1
-    rerun = 7 * cfg.n_layers if remat in ("full", "dots") else 0
-    out = {"flash_attn": n_micro * (2 if rerun else 1) * cfg.n_layers,
+    and w, a quant dense runs it in each forward.  A stub frontend's
+    adapter and lm_head run outside the layers (never rerun); an enc-dec
+    model has 7 denses and one attention an encoder layer, 11 and two a
+    decoder layer, and the adapter."""
+    if cfg.family == "encdec":
+        le = cfg.n_enc_layers or cfg.n_layers
+        in_layers = 7 * le + 11 * cfg.n_layers
+        dense = in_layers + 2
+        attn = le + 2 * cfg.n_layers
+    else:
+        in_layers = 7 * cfg.n_layers
+        dense = in_layers + (0 if cfg.tie_embeddings else 1) + (
+            cfg.frontend is not None)
+        attn = cfg.n_layers
+    rerun = in_layers if remat in ("full", "dots") else 0
+    out = {"flash_attn": n_micro * (2 if rerun else 1) * attn,
            "decode_gqa": 0}
     if mode == "td":
         out.update(td_vmm=n_micro * (dense + rerun),
@@ -1831,7 +1883,7 @@ def phase_train(launches: dict):
     mods = kernel_modules()
     for mode in ("td", "quant"):
         steps = TRAIN[f"{mode}_steps"]
-        arch = train_arch(mode)
+        arch = family_arch("qwen3-8b", mode, TRAIN["layers"])
         cfg = arch.model
         n_micro = arch.microbatches_for(shape.name)
         torch.cuda.empty_cache()
@@ -2349,7 +2401,8 @@ def phase_td_attention(launches: dict, rows: list):
 
     # 2. train, 4 layers, --td-attn td
     shape = ShapeCfg("cli", TRAIN["seq"], TRAIN["batch"], "train")
-    arch = td_cli.apply_td_args(train_arch("td"), None, td_attn="td")
+    arch = td_cli.apply_td_args(
+        family_arch("qwen3-8b", "td", TRAIN["layers"]), None, td_attn="td")
     cfg = arch.model
     n_micro = arch.microbatches_for(shape.name)
     torch.cuda.empty_cache()
@@ -3042,25 +3095,31 @@ def _ops_row_checks(pol, swap: tuple, shapes: list) -> float:
     return err
 
 
+# drift_traces and chaos_serve run qwen3-8b at its published widths cut to
+# this depth: their gates (adaptation, parity, recovery) are per request
+# and step, and the 36 layers' host-bound decode steps made room for the
+# enc-dec and frontend phases (PERF.md §4)
+FT_LAYERS = 4
+
+
 def phase_drift_traces(launches: dict, rows: list):
-    """bench_drift_traces at its smoke traffic on full-width qwen3-8b (36
-    layers, bf16, td, sigma_max 2.0, drift threshold 0.15): the plain engine
-    on the same requests (decode ms and host syncs beside the adaptive
-    ones), then for each trace the adaptive engine live and its
-    ``scripted_swaps`` replay.  Gates per trace: zero lost, an adaptation,
-    a staged install that moved the supply, two Vdds in the swap log, the
-    adapted energy below the static worst case, the replay's tokens equal,
-    one decode step built per engine, no new td_vmm operand, and no more
-    host syncs a decode step than the plain engine's.  Then td_vmm with an
-    ops row at the path's shapes."""
+    """bench_drift_traces at its smoke traffic on qwen3-8b at its widths
+    cut to FT_LAYERS layers (bf16, td, sigma_max 2.0, drift threshold
+    0.15): the plain engine on the same requests (decode ms and host
+    syncs beside the adaptive ones), then for each trace the adaptive
+    engine live and its ``scripted_swaps`` replay.  Gates per trace: zero
+    lost, an adaptation, a staged install that moved the supply, two Vdds
+    in the swap log, the adapted energy below the static worst case, the
+    replay's tokens equal, one decode step built per engine, no new td_vmm
+    operand, and no more host syncs a decode step than the plain
+    engine's.  Then td_vmm with an ops row at the path's shapes."""
     import torch
-    import repro_torch.configs as cfgs
     from repro_torch.configs.base import TDExecCfg
     from repro_torch.models import common
 
     conf = DRIFT
-    arch = cfgs.get("qwen3-8b").replace(td=TDExecCfg(mode="td",
-                                                     sigma_max=2.0))
+    arch = family_arch("qwen3-8b", None, FT_LAYERS).replace(
+        td=TDExecCfg(mode="td", sigma_max=2.0))
     mods = kernel_modules()
     t_phase = time.monotonic()
     plain, pout, pf = _engine_run(arch, conf, None, mods)
@@ -3168,8 +3227,8 @@ def phase_drift_traces(launches: dict, rows: list):
 
 def phase_chaos_serve(launches: dict):
     """bench_chaos.run_parity and run_drift at their smoke traffic on
-    full-width qwen3-8b (36 layers, bf16).  Parity, quant mode: the
-    fault-free run, then a stall at step 1, a preemption at half its
+    qwen3-8b at its widths cut to FT_LAYERS layers (bf16).  Parity, quant
+    mode: the fault-free run, then a stall at step 1, a preemption at half its
     steps and an explorer outage two steps later: zero lost, the
     fault-free tokens, a re-admission, the explorer marked down.  Then the
     same preemption at a long context (`_long_recovery`).  Drift,
@@ -3177,14 +3236,14 @@ def phase_chaos_serve(launches: dict):
     meter, save energy against the static worst case, with one decode step
     built and no new td_vmm operand."""
     import torch
-    import repro_torch.configs as cfgs
     from repro_torch import ft
     from repro_torch.configs.base import TDExecCfg
 
     conf = CHAOS
     mods = kernel_modules()
     t_phase = time.monotonic()
-    arch = cfgs.get("qwen3-8b").replace(td=TDExecCfg(mode="quant"))
+    arch = family_arch("qwen3-8b", None, FT_LAYERS).replace(
+        td=TDExecCfg(mode="quant"))
     eng0, base, f0 = _engine_run(arch, conf, None, mods)
     _engine_line("chaos_serve", "parity, fault-free", eng0, base, f0)
     check_launches("chaos_serve fault-free", f0["counts"], f0["expected"])
@@ -3221,7 +3280,8 @@ def phase_chaos_serve(launches: dict):
     gc.collect()
     torch.cuda.empty_cache()
 
-    arch = cfgs.get("qwen3-8b").replace(td=TDExecCfg(mode="td"))
+    arch = family_arch("qwen3-8b", None, FT_LAYERS).replace(
+        td=TDExecCfg(mode="td"))
     sched = ft.FaultSchedule([ft.FaultEvent(2, "drift", {"factor": 0.5})])
     eng, out, f = _engine_run(arch, conf, None, mods,
                               n_requests=conf["drift_requests"], adapt=True,
@@ -3491,14 +3551,16 @@ def moe_arch(mode: str, remat: str | None = None, grad_dtype=None):
     return arch.replace(train=train)
 
 
-def _moe_train(tag: str, arch, steps: int, launches: dict) -> dict:
-    """`train.run` of ``arch`` on TRAIN's batch, launches checked against
-    `train_expected`, host syncs counted inside each step (none allowed);
-    returns its losses, grad norms, step ms and peak GiB."""
+def _train_run(tag: str, arch, steps: int, launches: dict,
+               batch: int = TRAIN["batch"], depth: str = "not cut") -> dict:
+    """`train.run` of ``arch`` on ``batch`` x TRAIN's sequence, launches
+    checked against `train_expected`, host syncs counted inside each step
+    (none allowed); returns its losses, grad norms, step ms and peak
+    GiB."""
     import torch
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.launch import train
-    shape = ShapeCfg("cli", TRAIN["seq"], TRAIN["batch"], "train")
+    shape = ShapeCfg("cli", TRAIN["seq"], batch, "train")
     cfg, mode, remat = arch.model, arch.td.mode, arch.train.remat
     n_micro = arch.microbatches_for(shape.name)
     mods = kernel_modules()
@@ -3518,7 +3580,7 @@ def _moe_train(tag: str, arch, steps: int, launches: dict) -> dict:
     counts = {n: m.launches for n, m in mods.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_ms = [t * 1e3 for t in stats["step_s"]]
-    print(f"[{tag}] {cfg.name} {mode}, {cfg.n_layers} layers (not cut), "
+    print(f"[{tag}] {cfg.name} {mode}, {cfg.n_layers} layers ({depth}), "
           f"batch {shape.global_batch} x {shape.seq_len} in {n_micro} "
           f"microbatches, remat {remat}, grad sum "
           f"{arch.train.grad_allreduce_dtype}, "
@@ -3660,75 +3722,6 @@ def _moe_grad_sums() -> None:
         fail(f"moe grad sums: {n_bad} leaves of the {n_mb}-microbatch bf16 "
              "sum are not the bf16 running sum")
     del g16, run16, run32, leaves, params, opt
-
-
-def _moe_small(pol_td0) -> None:
-    """The smoke MoE (granite-moe-1b-a400m's smoke config, f32) on the
-    card against the CPU, at a dropless capacity (``capacity_factor``
-    8.0): prefill + 5 greedy decode steps in td at sigma 0 (tokens equal,
-    logits within 1e-3), and two train steps in td at the solved policy
-    (losses rtol 1e-4, grad norms rtol 1e-3, as `phase_train_small`)."""
-    import torch
-    import repro_torch.configs as cfgs
-    from repro_torch.configs.base import ShapeCfg, TrainCfg
-    from repro_torch.data.synthetic import DataCfg, SyntheticStream
-    from repro_torch.launch import serve, steps, td_cli
-    from repro_torch.models import common, get_api
-    from repro_torch.optim import adamw
-
-    base = cfgs.get_smoke(MOE["arch"])
-    cfg = dataclasses.replace(base.model, moe=dataclasses.replace(
-        base.model.moe, capacity_factor=8.0))
-    arch = td_cli.apply_td_args(base.replace(model=cfg), "td").replace(
-        train=TrainCfg(n_microbatches=2, remat="dots",
-                       compute_dtype="float32"))
-    solved = common.resolve_arch_policy(arch, device="cuda")
-    solve = common.resolve_arch_policy
-    res = {}
-    toks = torch.from_numpy(serve.prompts(1, 2, 8, cfg.vocab))
-    stream = SyntheticStream(DataCfg(vocab=cfg.vocab, seq_len=16,
-                                     global_batch=4, seed=0))
-    for dev in ("cpu", "cuda"):
-        try:
-            common.resolve_arch_policy = lambda a, device=None: pol_td0
-            sshape = ShapeCfg("serve", 14, 2, "decode")
-            pre = steps.build_prefill_step(arch, sshape)
-            srv = steps.build_serve_step(arch, sshape)
-            common.resolve_arch_policy = lambda a, device=None: solved
-            trn = steps.build_train_step(arch, ShapeCfg("t", 16, 4, "train"))
-        finally:
-            common.resolve_arch_policy = solve
-        p = get_api(cfg)["init"](0, cfg, pol_td0, device="cpu")
-        p = _to(p, dev)
-        with torch.inference_mode():
-            logits, state = pre(p, {"tokens": toks.to(dev)})
-            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
-            out = [tok]
-            for _ in range(5):
-                tok, state = srv(p, tok, state)
-                out.append(tok)
-        opt = adamw.init_opt_state(p)
-        losses, gns = [], []
-        for i in range(2):
-            batch = {k: torch.from_numpy(v).to(dev)
-                     for k, v in stream.batch(i).items()}
-            p, opt, m = trn(p, opt, batch, i)
-            losses.append(float(m["loss"]))
-            gns.append(float(m["grad_norm"]))
-        res[dev] = (logits.float().cpu(), torch.cat(out, 1).cpu(), losses,
-                    gns)
-    (lc, tc, lsc, gc_), (lg, tg, lsg, gg) = res["cpu"], res["cuda"]
-    err = float((lc - lg).abs().max())
-    same = bool(torch.equal(tc, tg))
-    print(f"[moe_small] smoke MoE f32, capacity factor 8.0, card vs CPU: "
-          f"serve td sigma=0 tokens equal {same}, max |logit diff| "
-          f"{err:.3e} (tolerance 1e-3); train td solved, 2 steps, remat "
-          f"dots: losses {lsg} vs {lsc}, grad norms {gg} vs {gc_}")
-    ok = same and err <= 1e-3 and all(
-        abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lsg, lsc)) and all(
-        abs(a - b) <= 1e-3 * abs(b) for a, b in zip(gg, gc_))
-    if not ok:
-        fail("the smoke MoE on the card disagrees with the CPU run")
 
 
 def _moe_determinism() -> None:
@@ -3980,6 +3973,7 @@ def phase_moe(launches: dict, rows: list):
     runs the smoke MoE on the card against the CPU, and holds the kernels
     to their plain versions at this path's shapes."""
     import torch
+    import repro_torch.configs as cfgs
     from repro_torch.tdsim.policy import TDPolicy
     t_phase = time.monotonic()
     walls: dict = {}
@@ -4015,11 +4009,11 @@ def phase_moe(launches: dict, rows: list):
 
     runs = {}
     for mode in ("td", "quant"):
-        runs[("dots", mode)] = _moe_train(
+        runs[("dots", mode)] = _train_run(
             f"moe_train_{mode}", moe_arch(mode), MOE[f"{mode}_steps"],
             launches)
     for remat in ("none", "full"):
-        runs[(remat, "td")] = _moe_train(
+        runs[(remat, "td")] = _train_run(
             f"moe_train_td_{remat}", moe_arch("td", remat=remat),
             MOE["remat_steps"], launches)
     ref = runs[("dots", "td")]
@@ -4038,7 +4032,13 @@ def phase_moe(launches: dict, rows: list):
     gc.collect()
     torch.cuda.empty_cache()
     lap("train")
-    _moe_small(TDPolicy(mode="td", n_chain=64))
+    # a dropless capacity, so that a token's experts do not depend on the
+    # rest of the batch
+    smoke = cfgs.get_smoke(MOE["arch"])
+    _family_small("moe_small", smoke.replace(model=dataclasses.replace(
+        smoke.model, moe=dataclasses.replace(smoke.model.moe,
+                                             capacity_factor=8.0))),
+                  TDPolicy(mode="td", n_chain=64), remat="dots")
     lap("card vs CPU")
     _moe_kernel_checks(rows)
     lap("kernel checks")
@@ -4090,6 +4090,585 @@ def phase_dense_configs(launches: dict, rows: list):
     tv_row = next(r for r in rows if r["name"] == "td_vmm")
     tv_row["max_abs_err"] = max(tv_row["max_abs_err"], err)
     print(f"[dense_configs] phase wall {time.monotonic() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# The enc-dec family (seamless-m4t-large-v2, its audio frontend a stub) and
+# a decoder's stub frontend (internvl2-26b's vision adapter) at full width.
+ENCDEC = dict(arch="seamless-m4t-large-v2", td_steps=3, quant_steps=1,
+              long_steps=8)
+# internvl2-26b: serve 4 x 128 prompts (64 patches) and 8 new tokens; its
+# config's 16 microbatches take a global batch of 16 (one row each)
+FRONTEND = dict(arch="internvl2-26b", gen=8, train_layers=2,
+                train_batch=16, td_steps=1, quant_steps=1)
+
+
+def _steps_serve(tag: str, arch, batch: int, prompt_len: int, steps: int,
+                 n_front: int, launches: dict) -> None:
+    """Prefill of ``batch`` prompts of ``prompt_len`` tokens with
+    ``n_front`` frontend positions, then ``steps`` greedy decode steps,
+    through `steps.build_prefill_step` / `build_serve_step` on seeded
+    bf16 weights: each step timed on the host clock to a device sync,
+    its host syncs counted (none allowed), launches checked, logits
+    finite, tokens in range."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import serve, steps as steps_lib
+    from repro_torch.models import common, get_api
+    cfg = arch.model
+    pol = common.resolve_arch_policy(arch, device="cuda")
+    params = get_api(cfg)["init"](0, cfg, pol, dtype=torch.bfloat16,
+                                  device="cuda")
+    s_cache = prompt_len + steps + (n_front if cfg.family == "decoder"
+                                    else 0)
+    shape = ShapeCfg("serve", s_cache, batch, "decode")
+    pre = steps_lib.build_prefill_step(arch, shape, device="cuda")
+    srv = steps_lib.build_serve_step(arch, shape, device="cuda")
+    toks = torch.from_numpy(serve.prompts(1, batch, prompt_len,
+                                          cfg.vocab)).cuda()
+    emb = torch.from_numpy(serve.frontend_embeds(
+        1, batch, n_front, cfg.d_frontend or cfg.d_model)).to(
+            "cuda", torch.bfloat16)
+    mods = kernel_modules()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counts_reset(mods)
+    ms, syncs = [], []
+    with torch.inference_mode(), sync_log() as log:
+        t0 = time.monotonic()
+        logits, state = pre(params, {"tokens": toks, "embeds": emb})
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        syncs.append(len(log))
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+        finite = bool(torch.isfinite(logits).all())
+        out = [tok]
+        for _ in range(steps):
+            n0 = len(log)
+            t0 = time.monotonic()
+            tok, state = srv(params, tok, state)
+            syncs.append(len(log) - n0)
+            torch.cuda.synchronize()
+            ms.append((time.monotonic() - t0) * 1e3)
+            out.append(tok)
+    counts = {n: m.launches for n, m in mods.items()}
+    ids = torch.cat(out, 1).cpu()
+    print(f"[{tag}] {cfg.name}, {cfg.n_layers} layers, batch {batch} x "
+          f"({n_front} frontend positions + {prompt_len} tokens), "
+          f"{steps} decode steps: prefill {ms[0]:.1f} ms, decode median "
+          f"{statistics.median(ms[1:]):.1f} ms a token (all "
+          f"{[round(t, 1) for t in ms[1:]]}); host syncs prefill "
+          f"{syncs[0]}, each decode step {syncs[1:]}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"tokens[0] {ids[0].tolist()}")
+    check_launches(tag, counts, serve_expected(cfg, steps))
+    if any(syncs):
+        fail(f"{tag}: a step waits for the device")
+    if not finite or int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab:
+        fail(f"{tag}: logits finite {finite}, tokens in "
+             f"[{int(ids.min())}, {int(ids.max())}]")
+    launches[tag] = counts
+    del params, state, logits
+
+
+def _family_small(tag: str, smoke, pol_td0, remat: str = "full") -> None:
+    """A smoke ArchConfig (f32 compute, 2 microbatches, ``remat``) on the
+    card against the CPU: prefill (with its frontend's embeddings) + 5
+    greedy decode steps in td at sigma 0 (tokens equal, logits within
+    1e-3), two train steps in td at the solved policy on batches with the
+    driver's frontend inputs (losses rtol 1e-4, grad norms rtol 1e-3, as
+    `phase_train_small`)."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg, TrainCfg
+    from repro_torch.data.synthetic import DataCfg, SyntheticStream
+    from repro_torch.launch import serve, steps, td_cli, train
+    from repro_torch.models import common, get_api
+    from repro_torch.optim import adamw
+
+    cfg = smoke.model
+    arch = td_cli.apply_td_args(smoke, "td").replace(
+        train=TrainCfg(n_microbatches=2, remat=remat,
+                       compute_dtype="float32"))
+    solved = common.resolve_arch_policy(arch, device="cuda")
+    solve = common.resolve_arch_policy
+    prompt, gen = 8, 6
+    n_front = 8 if cfg.frontend is not None else 0
+    batch_in = {"tokens": torch.from_numpy(serve.prompts(1, 2, prompt,
+                                                         cfg.vocab))}
+    if n_front:
+        batch_in["embeds"] = torch.from_numpy(serve.frontend_embeds(
+            1, 2, n_front, cfg.d_frontend or cfg.d_model))
+    s_cache = prompt + gen + (n_front if cfg.family == "decoder" else 0)
+    stream = SyntheticStream(DataCfg(vocab=cfg.vocab, seq_len=16,
+                                     global_batch=4, seed=0))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        try:
+            common.resolve_arch_policy = lambda a, device=None: pol_td0
+            sshape = ShapeCfg("serve", s_cache, 2, "decode")
+            pre = steps.build_prefill_step(arch, sshape)
+            srv = steps.build_serve_step(arch, sshape)
+            common.resolve_arch_policy = lambda a, device=None: solved
+            trn = steps.build_train_step(arch, ShapeCfg("t", 16, 4, "train"))
+        finally:
+            common.resolve_arch_policy = solve
+        p = _to(get_api(cfg)["init"](0, cfg, pol_td0, device="cpu"), dev)
+        with torch.inference_mode():
+            logits, state = pre(p, {k: v.to(dev)
+                                    for k, v in batch_in.items()})
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            out = [tok]
+            for _ in range(5):
+                tok, state = srv(p, tok, state)
+                out.append(tok)
+        opt = adamw.init_opt_state(p)
+        losses, gns = [], []
+        for i in range(2):
+            b = train.frontend_inputs(
+                {k: torch.from_numpy(v).to(dev)
+                 for k, v in stream.batch(i).items()}, stream, i, cfg,
+                torch.device(dev))
+            p, opt, m = trn(p, opt, b, i)
+            losses.append(float(m["loss"]))
+            gns.append(float(m["grad_norm"]))
+        res[dev] = (logits.float().cpu(), torch.cat(out, 1).cpu(), losses,
+                    gns)
+    (lc, tc, lsc, gc_), (lg, tg, lsg, gg) = res["cpu"], res["cuda"]
+    err = float((lc - lg).abs().max())
+    same = bool(torch.equal(tc, tg))
+    print(f"[{tag}] {cfg.name}{' (tied embeddings)' * cfg.tie_embeddings}"
+          f" f32, card vs CPU: serve td sigma=0 tokens equal {same}, max "
+          f"|logit diff| {err:.3e} (tolerance 1e-3); train td solved, 2 "
+          f"steps, remat {remat}: losses {lsg} vs {lsc}, grad norms {gg} vs "
+          f"{gc_}")
+    ok = same and err <= 1e-3 and all(
+        abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lsg, lsc)) and all(
+        abs(a - b) <= 1e-3 * abs(b) for a, b in zip(gg, gc_))
+    if not ok:
+        fail(f"{tag}: the smoke model on the card disagrees with the CPU run")
+
+
+def _td_vmm_rows(tag: str, rows: list, gen, checks: list) -> None:
+    """td_vmm at ``checks`` ((label, M, K, N) of the path, bits 4/4,
+    n_chain 576) against its plain version (bit for bit at sigma 0, noise
+    at the solved sigma as `_td_vmm_check` holds it), each also timed: the
+    kernel at the solved sigma in two turns, decode shapes (M <= 8) with a
+    cold L2, between two calls of the plain version each in an event pair
+    (it is host-paced at long contractions, where a spin cannot cover
+    it), each a row with its bound."""
+    import torch
+    from repro_torch.kernels.td_vmm import td_vmm as tv
+    from repro_torch.tdsim.policy import solve_td_policy
+    pol = solve_td_policy(4, 4, 576, None)
+    solved = (pol.sigma_chain, float(pol.tdc_q))
+    seed = torch.tensor([33350994], dtype=torch.int64, device="cuda")
+    kw = dict(bits_a=4, bits_w=4, n_chain=576)
+    par = torch.tensor(solved, dtype=torch.float32, device="cuda")
+    err = 0.0
+    for label, m, k, n in checks:
+        x, w = _codes(gen, (m, k), 4), _codes(gen, (k, n), 4)
+        e = _td_vmm_check(tv, f"{tag} {label}", x, w, seed, kw, [solved])
+        err = max(err, e)
+        cold = m <= 8
+
+        def plain_ms() -> float:
+            if cold:
+                flush_l2()
+            return _event_ms(lambda: tv.td_vmm_plain(x, w, par, seed, **kw))
+        plain = [plain_ms()]
+        t = in_turns(tag, f"td_vmm {label}", {
+            "kernel": lambda: tv.td_vmm(x, w, par, seed, **kw)},
+            {"kernel": 10 if m * n > 2**26 else 20}, cold=cold)
+        plain.append(plain_ms())
+        t["plain_ms"] = statistics.median(plain)
+        b_ms, b_by = bound_ms(4 * (m * k + k * n + m * n) + 16,
+                              2 * m * k * n * 4, "int8")
+        plan = tv.td_vmm_plan(m, k, n, 576, 4)
+        print(f"[{tag}] td_vmm {label}: M {m} K {k} N {n} ({plan.route} "
+              f"route, {'cold' if cold else 'warm'} L2): kernel "
+              f"{t['kernel_ms']:.5f} ms, plain {t['plain_ms']:.4f} ms "
+              f"(event pair, before and after: {plain[0]:.4f}, "
+              f"{plain[1]:.4f}), bound {b_ms:.5f} ms ({b_by}): kernel at "
+              f"{b_ms / t['kernel_ms']:.1%} of it")
+        rows.append(dict(
+            name="td_vmm", route="cuda",
+            source="src/repro_torch/csrc/td_vmm.cu",
+            replaces="src/repro/kernels/td_vmm/td_vmm.py:110",
+            max_abs_err=e, library_ms=None, ms=t["kernel_ms"],
+            plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            shape=f"{tag} {label}, M {m} K {k} N {n} bits 4/4, "
+                  f"{plan.route} route, solved sigma"))
+        del x, w
+        torch.cuda.empty_cache()
+    tv_row = next(r for r in rows if r["name"] == "td_vmm")
+    tv_row["max_abs_err"] = max(tv_row["max_abs_err"], err)
+
+
+def _flash_rows(tag: str, rows: list, gen, checks: list,
+                timed: tuple) -> None:
+    """flash_attn at ``checks`` ((label, B, Sq, Skv, Hq, Hkv, D, kv_len,
+    causal, q dtype, kv dtype)) against its plain version (`_cmp`, the
+    existing gates); the ``timed`` ones (the path's bf16 shapes; not the
+    edge cases, nor training's f32 operands) also in turns with SDPA over
+    the live keys, each a row with its bound."""
+    import torch
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    f_err = 0.0
+    for label, b, sq, skv, hq, hkv, d, lens, causal, qdt, kdt in checks:
+        q = _randn(gen, (b, sq, hq, d)).to(qdt)
+        k = _randn(gen, (b, skv, hkv, d)).to(kdt)
+        v = _randn(gen, (b, skv, hkv, d)).to(kdt)
+        off = skv - sq if causal and lens[0] != sq else 0
+        args = (q, k, v, _i32(lens), _i32([off]))
+        got = fa.flash_attn(*args, causal=causal)
+        want = fa.flash_attn_plain(*args, causal=causal)
+        torch.cuda.synchronize()
+        err, frac, ulp = _cmp(got, want)
+        path = ("tensor cores" if qdt == kdt == torch.bfloat16 and d == 128
+                else "CUDA cores")
+        print(f"[{tag}] flash_attn {label}: B={b} Sq={sq} Skv={skv} Hq={hq} "
+              f"Hkv={hkv} D={d} kv_len={lens} causal={causal} q "
+              f"{str(qdt)[6:]} kv {str(kdt)[6:]} ({path}): max |kernel - "
+              f"plain| {err:g}, in bf16 ulps {ulp:.3f}, differing "
+              f"{frac:.4f}")
+        if not _close(err, frac, ulp):
+            fail(f"flash_attn disagrees with its plain version ({tag} "
+                 f"{label})")
+        f_err = max(f_err, err)
+        if label in timed:
+            n = lens[0]
+            qt = q.transpose(1, 2).contiguous()
+            kt = k[:, :n].transpose(1, 2).contiguous()
+            vt = v[:, :n].transpose(1, 2).contiguous()
+            # SDPA's causal mask is top-left aligned: it matches only at
+            # Sq = the live keys
+            t = in_turns(tag, f"flash_attn {label}", {
+                "plain": lambda: fa.flash_attn_plain(*args, causal=causal),
+                "kernel": lambda: fa.flash_attn(*args, causal=causal),
+                "library": lambda: _sdpa(qt, kt, vt, causal)},
+                {"plain": 2 if sq * skv > 2**20 else 5, "kernel": 20,
+                 "library": 20}, alone=True)
+            b_ms, b_by = flash_bound(b, sq, lens, hq, hkv, d, causal)
+            print(f"[{tag}] flash_attn {label}: kernel {t['kernel_ms']:.5f} "
+                  f"ms, plain {t['plain_ms']:.5f} ms, sdpa "
+                  f"{t['library_ms']:.5f} ms, bound {b_ms:.5f} ms ({b_by}): "
+                  f"kernel at {b_ms / t['kernel_ms']:.1%} of its bound, "
+                  f"{t['kernel_ms'] / t['library_ms']:.2f}x sdpa")
+            rows.append(dict(
+                name="flash_attn", route="cuda",
+                source="src/repro_torch/csrc/flash_attn.cu",
+                replaces="src/repro/kernels/flash_attn/flash_attn.py:55",
+                max_abs_err=err, ms=t["kernel_ms"], plain_ms=t["plain_ms"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=t["library_ms"],
+                shape=f"{tag} {label} B={b} Sq={sq} Skv={skv} Hq={hq} "
+                      f"Hkv={hkv} D={d} {'causal' if causal else 'non-causal'}"
+                      f", {path}",
+                timed={k2: t[k2] for k2 in t if k2.endswith("_us")}))
+            del qt, kt, vt
+        del q, k, v, args, got, want
+    torch.cuda.empty_cache()
+    fa_row = next(r for r in rows if r["name"] == "flash_attn")
+    fa_row["max_abs_err"] = max(fa_row["max_abs_err"], f_err)
+
+
+def _lsq_rows(tag: str, rows: list, gen, shapes: list, timed: str) -> None:
+    """lsq_quant at ``shapes`` ((label, shape, dtype): the path's weights in
+    the compute dtype and its activations), three step sizes each, bit for
+    bit against its plain version; ``timed`` also in turns with the plain
+    version and `fake_quantize_per_tensor_affine`, a row with its
+    bound."""
+    import torch
+    from repro_torch.kernels.lsq_quant import lsq_quant as lq
+    from repro_torch.kernels.lsq_quant.ref import lsq_quant_ref
+    n_cases = 0
+    for label, shape, dtype in shapes:
+        for s_val, qn, qp in [(0.25, -8, 7), (0.0371, -8, 7), (1e-9, -8, 7)]:
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            s = torch.tensor(s_val, device="cuda").to(dtype)
+            got = lq.lsq_quant(x, s, qn, qp)
+            want = lsq_quant_ref(x, s, qn, qp)
+            torch.cuda.synchronize()
+            n_cases += 1
+            if not _bits_equal(got, want):
+                fail(f"lsq_quant is not bit-exact at {tag} {label} "
+                     f"{tuple(shape)} {dtype} s={s_val}")
+            del x, got, want
+    print(f"[{tag}] lsq_quant: {n_cases} cases bit-exact ({len(shapes)} "
+          f"shapes x 3 step sizes)")
+    label, shape, dtype = next(c for c in shapes if c[0] == timed)
+    x = (torch.randn(shape, generator=gen, device="cuda") * 0.1).to(dtype)
+    s = torch.tensor(0.0371, device="cuda").to(dtype)
+    s_f = float(s)
+    try:
+        torch.fake_quantize_per_tensor_affine(x, s_f, 0, -8, 7)
+        lib_in = x
+    except RuntimeError:
+        lib_in = x.float()
+    t = in_turns(tag, f"lsq_quant {label} {tuple(shape)}", {
+        "plain": lambda: lsq_quant_ref(x, s, -8, 7),
+        "kernel": lambda: lq.lsq_quant(x, s, -8, 7),
+        "library": lambda: torch.fake_quantize_per_tensor_affine(
+            lib_in, s_f, 0, -8, 7)},
+        {"plain": 5, "kernel": 20, "library": 20})
+    b_ms, b_by = bound_ms(2 * x.numel() * x.element_size(), 0, "bf16")
+    print(f"[{tag}] lsq_quant {label} {tuple(shape)}: kernel "
+          f"{t['kernel_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+          f"fake_quantize_per_tensor_affine ({str(lib_in.dtype)[6:]}) "
+          f"{t['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}): kernel "
+          f"at {b_ms / t['kernel_ms']:.1%} of it")
+    rows.append(dict(name="lsq_quant", route="cuda",
+                     source="src/repro_torch/csrc/lsq_quant.cu",
+                     replaces="src/repro/kernels/lsq_quant/lsq_quant.py:14",
+                     max_abs_err=0.0, ms=t["kernel_ms"],
+                     plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+                     bound_ms=b_ms, bound_by=b_by,
+                     shape=f"{tag} {label} {shape[0]} x {shape[1]} "
+                           f"{str(dtype)[6:]}"))
+    del x, lib_in
+
+
+def _encdec_kernel_checks(rows: list) -> None:
+    """The kernels at the enc-dec path's shapes, against their plain
+    versions on the card: td_vmm at lm_head (K 1024, N 256256: decode M 4
+    and a train microbatch M 256), the encoder and the cross-attention's K
+    and V over B x frames rows (serve 256, the long memory 8192) and the
+    decoder's denses; flash_attn at D 64, g 1 (the CUDA-core path): the
+    encoder (non-causal, Sq = Skv), the decoder's prefill (causal), the
+    cross-attention at Sq 128 and Sq 1 over 64 and 2048 frames, and the
+    training's float32 encoder and bf16-against-f32 cross-attention;
+    decode_gqa at D 64, g 1; lsq_quant at the quant step's weights (the
+    1024 x 256256 lm_head) and activations."""
+    import torch
+    from repro_torch.configs import seamless_m4t_large_v2 as conf
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    cfg = conf.CONFIG.model
+    d, f, v, h, hd = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_heads, cfg.hd
+    b, p, g = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    fr, fl = max(8, p // 2), conf.DEC_PREFILL
+    mb = TRAIN["batch"] // conf.CONFIG.train.n_microbatches
+    _td_vmm_rows("encdec", rows, gen, [
+        ("decode lm_head", b, d, v),
+        ("train lm_head", mb * TRAIN["seq"], d, v),
+        ("encoder attn.wq", b * fr, d, d),
+        ("encoder mlp.wi", b * fr, d, f),
+        ("encoder mlp.wo", b * fr, f, d),
+        ("long encoder mlp.wi", b * fl, d, f),
+        ("long cross wk", b * fl, d, d),
+        ("decode cross wq", b, d, d),
+        ("decode mlp.wo", b, f, d)])
+    bf, f32 = torch.bfloat16, torch.float32
+    n_vis = max(4, min(16, TRAIN["seq"] // 4))
+    _flash_rows("encdec", rows, gen, [
+        ("encoder", b, fr, fr, h, h, hd, [fr] * b, False, bf, bf),
+        ("long encoder", b, fl, fl, h, h, hd, [fl] * b, False, bf, bf),
+        ("decoder prefill", b, p, p + g, h, h, hd, [p] * b, True, bf, bf),
+        ("cross prefill", b, p, fr, h, h, hd, [fr] * b, False, bf, bf),
+        ("cross decode", b, 1, fr, h, h, hd, [fr] * b, False, bf, bf),
+        ("long cross decode", b, 1, fl, h, h, hd, [fl] * b, False, bf, bf),
+        ("train encoder, f32", mb, n_vis, n_vis, h, h, hd, [n_vis] * mb,
+         False, f32, f32),
+        ("train cross, bf16 q, f32 kv", mb, TRAIN["seq"], n_vis, h, h, hd,
+         [n_vis] * mb, False, bf, f32)],
+        ("encoder", "long encoder", "decoder prefill", "cross prefill",
+         "cross decode", "long cross decode"))
+    _decode_rows(rows, "encdec", gen, h, h, hd, [
+        ("decode", b, p + g, p + g // 2),
+        ("long decode", b, p + ENCDEC["long_steps"],
+         p + ENCDEC["long_steps"] // 2)])
+    _lsq_rows("encdec", rows, gen, [
+        ("lm_head", (d, v), bf), ("attn", (d, d), bf),
+        ("mlp.wi", (d, f), bf), ("mlp.wo", (f, d), bf),
+        ("adapter", (cfg.d_frontend, d), bf),
+        ("act d_model", (mb, TRAIN["seq"], d), bf),
+        ("act d_ff", (mb, TRAIN["seq"], f), bf),
+        ("encoder act d_model, f32", (mb, n_vis, d), f32),
+        ("encoder act d_ff, f32", (mb, n_vis, f), f32)], "lm_head")
+
+
+def _frontend_kernel_checks(rows: list) -> None:
+    """The kernels at internvl2-26b's shapes against their plain versions
+    on the card: td_vmm at the adapter (K 3200, N 6144: the serve's 256
+    patch rows and the 4096 of the 1024-patch prefill), lm_head (N 92672)
+    at decode and the layers' denses; flash_attn at D 128, g 6 (the
+    tensor-core path; 48 heads over 8): the serve prefill, the 1024-patch
+    prefill, a training microbatch and ragged lengths with an offset;
+    decode_gqa at D 128, g 6; lsq_quant at the quant step's weights and
+    activations."""
+    import torch
+    from repro_torch.configs import internvl2_26b as conf
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    cfg = conf.CONFIG.model
+    d, f, v, hq, hkv, hd = (cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_heads,
+                            cfg.n_kv_heads, cfg.hd)
+    b, p, g = SERVE["batch"], SERVE["prompt_len"], FRONTEND["gen"]
+    fr, npat = max(8, p // 2), conf.N_PATCHES
+    _td_vmm_rows("frontend", rows, gen, [
+        ("adapter", b * fr, cfg.d_frontend, d),
+        ("patch prefill adapter", b * npat, cfg.d_frontend, d),
+        ("decode lm_head", b, d, v),
+        ("prefill attn.wk", b * (fr + p), d, hkv * hd),
+        ("decode mlp.wo", b, f, d)])
+    bf, f32 = torch.bfloat16, torch.float32
+    sv = fr + p
+    n_vis = max(4, min(16, TRAIN["seq"] // 4))
+    _flash_rows("frontend", rows, gen, [
+        ("serve prefill", b, sv, sv + g, hq, hkv, hd, [sv] * b, True, bf, bf),
+        ("patch prefill", b, npat + p, npat + p, hq, hkv, hd,
+         [npat + p] * b, True, bf, bf),
+        ("train microbatch", 1, TRAIN["seq"], TRAIN["seq"], hq, hkv, hd,
+         [TRAIN["seq"]], True, bf, bf),
+        ("ragged, q_offset", 2, 40, 48, hq, hkv, hd, [48, 33], True, bf,
+         bf),
+        ("f32", 2, 40, 40, hq, hkv, hd, [40, 17], True, f32, f32)],
+        ("serve prefill", "patch prefill", "train microbatch"))
+    _decode_rows(rows, "frontend", gen, hq, hkv, hd, [
+        ("decode", b, sv + g, sv + g // 2)])
+    _lsq_rows("frontend", rows, gen, [
+        ("adapter", (cfg.d_frontend, d), bf),
+        ("lm_head", (d, v), bf), ("attn.wq", (d, d), bf),
+        ("attn.wk", (d, hkv * hd), bf), ("mlp.wi", (d, f), bf),
+        ("mlp.wo", (f, d), bf), ("embeds, f32", (1, n_vis, cfg.d_frontend),
+                                 f32),
+        ("act d_model", (1, TRAIN["seq"], d), bf),
+        ("act d_ff", (1, TRAIN["seq"], f), bf)], "lm_head")
+
+
+def phase_encdec(launches: dict, rows: list):
+    """The enc-dec family at full width and depth: seamless-m4t-large-v2,
+    24 encoder + 24 decoder layers (not cut), td (4/4, the port's solve),
+    seeded bf16 weights.  Serves SERVE's batch through `serve.run` (64
+    frames of embeddings; launches and host syncs a step checked), then a
+    long memory through the prefill and serve steps (4 x 2048 frames, the
+    config's DEC_PREFILL, prompt 128, 8 decode steps: cross-attention at
+    Skv 2048, Sq 1), trains TRAIN's batch (16 frames a row) at the
+    config's 4 microbatches and remat full (3 td steps, 1 quant step),
+    runs the smoke model on the card against the CPU, and holds the
+    kernels to their plain versions at this path's shapes."""
+    import torch
+    import repro_torch.configs as cfgs
+    from repro_torch.configs import seamless_m4t_large_v2 as conf
+    from repro_torch.tdsim.policy import TDPolicy
+    t_phase = time.monotonic()
+    walls: dict = {}
+
+    def lap(part: str) -> None:
+        walls[part] = time.monotonic() - t_phase - sum(walls.values())
+    name = ENCDEC["arch"]
+    arch = family_arch(name, "td")
+    cfg = arch.model
+    n_param = _n_params(cfg)
+    print(f"[encdec] {name}: {cfg.n_enc_layers} encoder + {cfg.n_layers} "
+          f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: {n_param / 1e9:.3f}"
+          f"B parameters")
+    _serve_full("encdec_serve", arch, SERVE["batch"], SERVE["prompt_len"],
+                SERVE["gen"], launches, syncs=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("serve")
+    if conf.DEC_PREFILL > conf.CROSS_MEMORY_CAP:
+        fail("encdec: the long memory exceeds CROSS_MEMORY_CAP")
+    _steps_serve("encdec_long", arch, SERVE["batch"], SERVE["prompt_len"],
+                 ENCDEC["long_steps"], conf.DEC_PREFILL, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("long serve")
+    for mode in ("td", "quant"):
+        r = _train_run(f"encdec_train_{mode}", family_arch(name, mode),
+                       ENCDEC[f"{mode}_steps"], launches)
+        print(f"[encdec_train_{mode}] peak {r['peak']:.2f} GiB, step ms "
+              f"{[round(t, 1) for t in r['step_ms']]}, losses "
+              f"{r['losses']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    lap("train")
+    _family_small("encdec_small", cfgs.get_smoke(name),
+                  TDPolicy(mode="td", n_chain=64))
+    lap("card vs CPU")
+    _encdec_kernel_checks(rows)
+    lap("kernel checks")
+    print(f"[encdec] phase wall {time.monotonic() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + ")")
+
+
+def _n_params(cfg) -> int:
+    """The parameter count of a dense attention model ``cfg`` (weights
+    and norms; the LSQ step sizes left out), from its widths."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+    layer = attn + 3 * d * f + 2 * d
+    n = cfg.vocab * d + d + (cfg.d_frontend or d) * d * (
+        cfg.frontend is not None)
+    if cfg.family == "encdec":
+        le = cfg.n_enc_layers or cfg.n_layers
+        return n + cfg.vocab * d + d + le * layer + cfg.n_layers * (
+            layer + attn + d)
+    return n + cfg.n_layers * layer + cfg.vocab * d * (
+        not cfg.tie_embeddings)
+
+
+def phase_frontend(launches: dict, rows: list):
+    """A decoder's stub frontend at full width and depth: internvl2-26b's
+    backbone, 48 layers (not cut), td, seeded bf16 weights (39.8 GB).
+    Serves SERVE's batch of prompts with 64 patches through `serve.run`
+    (8 new tokens; launches and host syncs a step checked), then one
+    prefill of 4 x (1024 patches, the config's N_PATCHES, + 128 tokens)
+    and 2 decode steps through the steps; trains at full width **cut to 2
+    of 48 layers** (one td step and one quant step, the config's 16
+    microbatches over a batch of 16 x 128: 16 patches and 112 tokens a
+    row); runs the smoke model and the tied-embeddings smoke model
+    (qwen3-8b's smoke config with ``tie_embeddings``) on the card against
+    the CPU; holds the kernels to their plain versions at this path's
+    shapes."""
+    import torch
+    import repro_torch.configs as cfgs
+    from repro_torch.configs import internvl2_26b as conf
+    from repro_torch.tdsim.policy import TDPolicy
+    t_phase = time.monotonic()
+    walls: dict = {}
+
+    def lap(part: str) -> None:
+        walls[part] = time.monotonic() - t_phase - sum(walls.values())
+    name = FRONTEND["arch"]
+    arch = family_arch(name, "td")
+    cfg = arch.model
+    n_param = _n_params(cfg)
+    print(f"[frontend] {name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}"
+          f", d_ff {cfg.d_ff}, vocab {cfg.vocab}, adapter from "
+          f"{cfg.d_frontend}: {n_param / 1e9:.3f}B parameters")
+    _serve_full("frontend_serve", arch, SERVE["batch"], SERVE["prompt_len"],
+                FRONTEND["gen"], launches, syncs=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("serve")
+    _steps_serve("frontend_patches", arch, SERVE["batch"],
+                 SERVE["prompt_len"], 2, conf.N_PATCHES, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("patch prefill")
+    for mode in ("td", "quant"):
+        r = _train_run(f"frontend_train_{mode}",
+                       family_arch(name, mode, FRONTEND["train_layers"]),
+                       FRONTEND[f"{mode}_steps"], launches,
+                       batch=FRONTEND["train_batch"],
+                       depth=f"cut from {cfg.n_layers}")
+        print(f"[frontend_train_{mode}] peak {r['peak']:.2f} GiB, step ms "
+              f"{[round(t, 1) for t in r['step_ms']]}, losses "
+              f"{r['losses']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    lap("train")
+    pol0 = TDPolicy(mode="td", n_chain=64)
+    _family_small("frontend_small", cfgs.get_smoke(name), pol0)
+    qwen = cfgs.get_smoke("qwen3-8b")
+    _family_small("tied_small", qwen.replace(model=dataclasses.replace(
+        qwen.model, tie_embeddings=True)), pol0)
+    lap("card vs CPU")
+    _frontend_kernel_checks(rows)
+    lap("kernel checks")
+    print(f"[frontend] phase wall {time.monotonic() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + ")")
 
 
 def _span_report(prof, span: str, which: slice, side: str = "host") -> None:
@@ -4244,7 +4823,8 @@ def phase_profile():
     torch.cuda.empty_cache()
     shape = ShapeCfg("cli", TRAIN["seq"], TRAIN["batch"], "train")
     with profile(activities=acts) as prof:
-        train.run(train_arch("td"), shape, 2, None, seed=0)
+        train.run(family_arch("qwen3-8b", "td", TRAIN["layers"]), shape, 2,
+                  None, seed=0)
     _span_report(prof, "train.step", slice(-1, None))
     _span_report(prof, "train.optimizer", slice(-1, None), side="device")
 
@@ -4280,12 +4860,14 @@ def main() -> None:
             "launches_by_path", "timed")
     flush_l2(release=True)
     launches: dict = {}
-    with_rows = (phase_moe, phase_dense_configs, phase_noise_loop,
-                 phase_td_attention, phase_drift_traces)
+    with_rows = (phase_moe, phase_dense_configs, phase_encdec,
+                 phase_frontend, phase_noise_loop, phase_td_attention,
+                 phase_drift_traces)
     for phase in (phase_serve, phase_scheduler, phase_scheduler_scenario,
-                  phase_train, phase_moe, phase_dense_configs,
-                  phase_noise_loop, phase_td_attention, phase_lm_noise_sweep,
-                  phase_drift_traces, phase_chaos_serve, phase_chaos_train):
+                  phase_train, phase_moe, phase_dense_configs, phase_encdec,
+                  phase_frontend, phase_noise_loop, phase_td_attention,
+                  phase_lm_noise_sweep, phase_drift_traces,
+                  phase_chaos_serve, phase_chaos_train):
         gc.collect()           # engines wrapped by `_counted` form cycles
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()

@@ -105,11 +105,12 @@ def _to_host(v) -> tuple[np.ndarray, str]:
 
 
 def _from_host(a: np.ndarray, dtype: str, device) -> torch.Tensor:
+    # ascontiguousarray makes a 0-d array 1-d: keep the saved shape
+    a = np.ascontiguousarray(a).reshape(a.shape)
     if dtype == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
-            torch.bfloat16)
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        t = torch.from_numpy(a)
     return t if device is None else t.to(device)
 
 

@@ -1,9 +1,12 @@
 """Architecture registry of the port: `--arch <id>` resolution.
 
 The dense decoders ``qwen3-8b``, ``granite-8b``, ``qwen2.5-3b`` and
-``qwen3-4b`` and the MoE decoder ``granite-moe-1b-a400m`` are ported so
-far (ROADMAP §1 step 13 lists the other families); any other name
-raises.
+``qwen3-4b``, the MoE decoder ``granite-moe-1b-a400m``, the
+vision-frontend decoder ``internvl2-26b`` (a stub frontend: precomputed
+patch embeddings through an adapter) and the encoder-decoder
+``seamless-m4t-large-v2`` (a stub audio frontend) are ported so far;
+``dbrx-132b``, ``zamba2-1.2b`` and ``rwkv6-1.6b`` raise (ROADMAP §1 step
+13 lists them).
 """
 from __future__ import annotations
 
@@ -16,9 +19,11 @@ from repro_torch.configs.base import (ArchConfig, ModelCfg, MoECfg, RWKVCfg,
 _MODULES = {
     "granite-8b": "repro_torch.configs.granite_8b",
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -37,13 +37,39 @@ def tree_from_numpy(x, device="cpu"):
 def params_from_jax(tree, cfg, device=None) -> dict:
     """The port's parameters of model ``cfg`` on ``device`` (None: CUDA)
     from a numpy copy of the reference's parameter pytree (unstacked
-    layers: ``scan_layers`` off)."""
+    layers: ``scan_layers`` off).  A decoder's tree has ``layers`` (one
+    dict a layer), ``adapter`` exactly when it has a stub frontend and
+    ``lm_head`` exactly when its embeddings are not tied; an enc-dec
+    tree has ``adapter``, ``embed``, ``enc_norm``, ``final_norm``,
+    ``lm_head``, ``encoder`` (n_enc_layers dicts) and ``decoder``
+    (n_layers dicts, each with ``xattn`` and ``ln_x``)."""
     params = tree_from_numpy(tree, device_mod.resolve(device))
-    layers = params.get("layers")
-    if not isinstance(layers, list) or len(layers) != cfg.n_layers:
-        raise ValueError(f"expected a list of {cfg.n_layers} per-layer "
-                         "parameter dicts (scan_layers=False)")
+    if cfg.family == "encdec":
+        _check_list(params, "encoder", cfg.n_enc_layers or cfg.n_layers)
+        _check_list(params, "decoder", cfg.n_layers)
+        want = {"adapter", "embed", "enc_norm", "final_norm", "lm_head",
+                "encoder", "decoder"}
+        if set(params) != want or any(
+                "xattn" not in lp or "ln_x" not in lp
+                for lp in params["decoder"]):
+            raise ValueError(f"enc-dec parameter tree with {sorted(params)}"
+                             f", expected {sorted(want)} and decoder "
+                             "layers with xattn and ln_x")
+        return params
+    _check_list(params, "layers", cfg.n_layers)
+    for name, want in (("adapter", cfg.frontend is not None),
+                       ("lm_head", not cfg.tie_embeddings)):
+        if (name in params) != want:
+            raise ValueError(f"{cfg.name}: the parameter tree "
+                             f"{'lacks' if want else 'has'} {name!r}")
     return params
+
+
+def _check_list(params: dict, name: str, n: int) -> None:
+    layers = params.get(name)
+    if not isinstance(layers, list) or len(layers) != n:
+        raise ValueError(f"expected a list of {n} per-layer parameter "
+                         f"dicts under {name!r} (scan_layers=False)")
 
 
 def resnet_params_from_jax(tree, cfg, device=None) -> dict:

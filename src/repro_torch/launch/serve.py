@@ -13,14 +13,17 @@ cache, and the continuous-batching scheduler front end (port of
 run on CUDA (pass ``--device cpu`` with ``--smoke`` for a CPU run).
 Parameters come from the port's seeded init, stored in the compute dtype;
 prompts from ``numpy.random.default_rng``, so a test can feed the same
-tokens to both packages.  Both modes print the TD energy meter's J/token
-(the paper's circuit model: the three hardware domains for the fixed
-batch, per request in scheduler mode).  ``--td-per-layer``,
-``--scenario`` and ``--corner`` resolve the operating points as the
-reference does; ``--td-attn quant|td`` runs attention's QK^T and PV on
-the TD engine (`tdsim.td_attention`; the fixed batch only: the
-scheduler's per-row caches raise the reference's ValueError at the first
-decode step).  In scheduler mode ``--adapt`` runs the drift-adaptive
+tokens to both packages.  A stub frontend (``--arch internvl2-26b``) or
+an enc-dec model (``--arch seamless-m4t-large-v2``) also gets precomputed
+embeddings, (batch, max(8, prompt_len // 2), d_frontend) in bf16, from a
+numpy stream of their own (`frontend_embeds`).  Both modes print the TD
+energy meter's J/token (the paper's circuit model: the three hardware
+domains for the fixed batch, per request in scheduler mode).
+``--td-per-layer``, ``--scenario`` and ``--corner`` resolve the operating
+points as the reference does; ``--td-attn quant|td`` runs attention's
+QK^T and PV on the TD engine (`tdsim.td_attention`; the fixed batch only:
+the scheduler's per-row caches raise the reference's ValueError at the
+first decode step).  In scheduler mode ``--adapt`` runs the drift-adaptive
 engine and ``--trace SEED:STEPS[:SEGMENTS]`` or ``--trace @file.json``
 replays a traffic trace through it (`ft.TrafficTrace`).
 """
@@ -50,6 +53,14 @@ def prompts(seed: int, batch: int, prompt_len: int, vocab: int) -> np.ndarray:
     return rng.integers(3, vocab, size=(batch, prompt_len)).astype(np.int32)
 
 
+def frontend_embeds(seed: int, batch: int, n: int, d: int) -> np.ndarray:
+    """The stub frontend's embeddings `run` serves, (batch, n, d) float32
+    standard normal (`run` rounds them to bf16, the reference's dtype),
+    from a stream of their own beside that of `prompts`."""
+    rng = np.random.default_rng([seed, 1])
+    return rng.standard_normal((batch, n, d), dtype=np.float32)
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -59,19 +70,34 @@ def run(arch, batch: int, prompt_len: int, gen: int, seed: int = 0,
         device=None, stats: dict | None = None) -> torch.Tensor:
     """Serve ``batch`` prompts and return the (batch, gen) greedy tokens.
     ``stats``, when given, receives ``prefill_ms`` and ``decode_ms`` (the
-    per-step list), each timed on the host clock up to a device sync."""
+    per-step list), each timed on the host clock up to a device sync.
+
+    A stub frontend's or an enc-dec model's prompts come with
+    ``frontend_embeds(seed, batch, max(8, prompt_len // 2), d_frontend)``.
+    A decoder's KV cache then also holds the frontend positions: it has
+    ``n_frontend + prompt_len + gen`` rows.  The reference sizes it at
+    ``prompt_len + gen`` and fails its prefill when the frontend
+    positions outnumber ``gen`` (ROADMAP §3)."""
     dev = device_mod.resolve(device)
     cfg = arch.model
     pol = common.resolve_arch_policy(arch, device=dev)
     api = get_api(cfg)
     compute_dt = steps_lib.DTYPES[arch.train.compute_dtype]
     params = api["init"](seed, cfg, pol, dtype=compute_dt, device=dev)
+    toks = torch.from_numpy(prompts(seed, batch, prompt_len,
+                                    cfg.vocab)).to(dev)
+    batch_in = {"tokens": toks}
     s_cache = prompt_len + gen
+    if cfg.family == "encdec" or cfg.frontend is not None:
+        n_front = max(8, prompt_len // 2)
+        batch_in["embeds"] = torch.from_numpy(frontend_embeds(
+            seed, batch, n_front, cfg.d_frontend or cfg.d_model)).to(
+                dev, torch.bfloat16)
+        if cfg.family == "decoder":
+            s_cache += n_front
     shape = ShapeCfg("serve", s_cache, batch, "decode")
     prefill = steps_lib.build_prefill_step(arch, shape, device=dev)
     serve_step = steps_lib.build_serve_step(arch, shape, device=dev)
-    toks = torch.from_numpy(prompts(seed, batch, prompt_len,
-                                    cfg.vocab)).to(dev)
 
     # the spans "serve.prefill" / "serve.decode" end at a device sync, so
     # a profiler trace can assign every kernel to the step that ran it
@@ -79,7 +105,7 @@ def run(arch, batch: int, prompt_len: int, gen: int, seed: int = 0,
         _sync(dev)
         t0 = time.monotonic()
         with record_function("serve.prefill"):
-            logits, state = prefill(params, {"tokens": toks})
+            logits, state = prefill(params, batch_in)
             tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
             _sync(dev)
         t_prefill = time.monotonic() - t0

@@ -4,9 +4,12 @@
 ragged-prefill and insert steps, and the forward-only loss eval.
 
 Each step casts the parameters to the compute dtype, as the reference's
-steps do.  `cast_tree` returns a leaf that already has that dtype as is,
-so parameters stored in the compute dtype (`serve.run` stores them in
-bf16 at init) are cast once, at load, instead of on every step.
+steps do; a batch's frontend ``embeds`` and an enc-dec state's
+``enc_out`` pass through as they come (the reference casts neither: a
+float32 frame batch meets the bf16 weights in float32, the matmuls'
+promotion).  `cast_tree` returns a leaf that already has that dtype as
+is, so parameters stored in the compute dtype (`serve.run` stores them
+in bf16 at init) are cast once, at load, instead of on every step.
 `build_adaptive_serve_step` is the drift-adaptive decode step of the
 continuous-batching engine.
 """

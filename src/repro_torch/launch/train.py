@@ -11,9 +11,12 @@ tolerance.  Parameters come from the port's seeded init in float32, or
 from the newest intact checkpoint.  ``--td-per-layer``, ``--scenario`` and
 ``--corner`` resolve the TD operating points as the reference does
 (`launch.td_cli`), and ``--td-attn quant|td`` runs attention on the TD
-engine (`tdsim.td_attention`, straight-through gradients).  `run` also
-consumes a chaos `ft.FaultSchedule` (stalls, checkpoint corruption,
-preemptions).
+engine (`tdsim.td_attention`, straight-through gradients).  A stub
+frontend (``--arch internvl2-26b``) or an enc-dec model (``--arch
+seamless-m4t-large-v2``) gets each step's precomputed embeddings from
+`SyntheticStream.frontend_batch` (float32, ``max(4, min(16, seq // 4))``
+positions), as in the reference.  `run` also consumes a chaos
+`ft.FaultSchedule` (stalls, checkpoint corruption, preemptions).
 """
 from __future__ import annotations
 
@@ -67,6 +70,25 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
+def frontend_inputs(batch: dict, stream: SyntheticStream, step: int, cfg,
+                    device) -> dict:
+    """Step ``step``'s batch with a stub frontend's inputs, as the
+    reference's driver builds them: ``max(4, min(16, seq // 4))``
+    positions of precomputed embeddings from ``stream`` (float32, on
+    ``device``); a decoder's tokens and labels are cut to make room for
+    them, an enc-dec model's encoder reads them beside all the tokens.  A
+    model without a frontend gets ``batch`` as it is."""
+    if cfg.frontend is None:
+        return batch
+    n_vis = max(4, min(16, batch["tokens"].shape[1] // 4))
+    batch = {**batch, "embeds": _to_device(stream.frontend_batch(
+        step, n_vis, cfg.d_frontend or cfg.d_model), device)}
+    if cfg.family != "encdec":
+        batch["tokens"] = batch["tokens"][:, :-n_vis]
+        batch["labels"] = batch["labels"][:, n_vis:]
+    return batch
+
+
 def run(arch, shape: ShapeCfg, steps: int, ckpt_dir: str | None,
         ckpt_every: int = 50, log_every: int = 10, seed: int = 0,
         fail_at: int | None = None, schedule: "ft.FaultSchedule | None" = None,
@@ -104,7 +126,9 @@ def run(arch, shape: ShapeCfg, steps: int, ckpt_dir: str | None,
         for i in range(start, steps):
             step_idx, host_batch = loader.get()
             assert step_idx == i
-            batch = {k: _to_device(v, dev) for k, v in host_batch.items()}
+            batch = frontend_inputs(
+                {k: _to_device(v, dev) for k, v in host_batch.items()},
+                stream, i, cfg, dev)
             if fail_at is not None and i == fail_at:
                 raise ft.Preemption(f"injected failure at step {i}")
             if schedule is not None:

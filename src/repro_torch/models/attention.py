@@ -17,7 +17,13 @@ device (no host sync inside a step).  The reference's
 and values into the cache tensors in place (a cache is never read again at
 its old fill level) and returns the same tensors with the advanced index.
 The per-row cache takes no TD attention (the reference's ValueError).
-Cross-attention is not ported yet.
+
+Cross-attention (``kv_from``, the encoder's output): K and V come from
+``kv_from``, neither q nor k gets RoPE, no cache is read or written, the
+valid-KV prefix is all of ``kv_from`` or the row sums of
+``kv_from_valid``, and masking is never causal.  It always runs on
+flash_attn, at a single query row too (decode_gqa is only the single-row
+causal self-attention path).
 """
 from __future__ import annotations
 
@@ -31,7 +37,9 @@ from repro_torch.tdsim.td_attention import td_attention
 
 
 def attn_init(gen: torch.Generator, cfg: ModelCfg, pol, dtype=torch.float32,
-              device=None) -> dict:
+              device=None, cross: bool = False) -> dict:
+    """The four denses (and, with qk-norm, the q and k norms: never in a
+    cross-attention block), drawn from ``gen`` in the reference's order."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p = {
         "wq": common.dense_init(gen, d, hq * hd, pol, cfg.qkv_bias, dtype,
@@ -43,7 +51,7 @@ def attn_init(gen: torch.Generator, cfg: ModelCfg, pol, dtype=torch.float32,
         "wo": common.dense_init(gen, hq * hd, d, pol, False, dtype,
                                 scale=1.0 / (hq * hd) ** 0.5, device=device),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = common.rmsnorm_init(hd, dtype, device)
         p["k_norm"] = common.rmsnorm_init(hd, dtype, device)
     return p
@@ -51,13 +59,19 @@ def attn_init(gen: torch.Generator, cfg: ModelCfg, pol, dtype=torch.float32,
 
 def attention(params: dict, x: torch.Tensor, cfg: ModelCfg, pol,
               positions: torch.Tensor, cache: dict | None = None,
+              kv_from: torch.Tensor | None = None,
+              kv_from_valid: torch.Tensor | None = None,
               causal: bool = True, key=None, attn_pols=None,
               dense=None) -> tuple[torch.Tensor, dict | None]:
-    """Self-attention with an optional KV cache; x (B, S, d).  ``key``
-    seeds the four denses' noise (``fold_key(key, 0..3)``) and TD
-    attention's (``fold_key(key, 4)``).  ``dense(p, h, j)`` computes the
-    j-th dense (wq, wk, wv, wo: 0..3); None means ``common.dense(p, h,
-    pol, fold_key(key, j))``."""
+    """Self-attention with an optional KV cache, or cross-attention on
+    ``kv_from`` (B, Skv, d) (``kv_from_valid``: a (B, Skv) or (Skv,)
+    valid-prefix mask of it); x (B, S, d).  ``key`` seeds the four denses'
+    noise (``fold_key(key, 0..3)``) and TD attention's (``fold_key(key,
+    4)``).  ``dense(p, h, j)`` computes the j-th dense (wq, wk, wv, wo:
+    0..3); None means ``common.dense(p, h, pol, fold_key(key, j))``."""
+    is_cross = kv_from is not None
+    if is_cross:
+        cache = None                    # the reference reads none either
     if attn_pols is not None and cache is not None \
             and isinstance(cache["idx"], torch.Tensor):
         raise ValueError("TD-quantized attention takes a scalar "
@@ -70,9 +84,11 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelCfg, pol,
         def dense(p, h, j):
             return common.dense(p, h, pol, common.fold_key(key, j))
 
+    src = kv_from if is_cross else x
+    skv = src.shape[1]
     q = dense(params["wq"], x, 0).reshape(b, s, hq, hd)
-    k = dense(params["wk"], x, 1).reshape(b, s, hkv, hd)
-    v = dense(params["wv"], x, 2).reshape(b, s, hkv, hd)
+    k = dense(params["wk"], src, 1).reshape(b, skv, hkv, hd)
+    v = dense(params["wv"], src, 2).reshape(b, skv, hkv, hd)
     if cfg.qk_norm and "q_norm" in params:
         q = common.rmsnorm(params["q_norm"], q, cfg.rms_eps)
         k = common.rmsnorm(params["k_norm"], k, cfg.rms_eps)
@@ -81,16 +97,17 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelCfg, pol,
     if per_row and s != 1:
         raise ValueError("per-slot (vector-idx) caches support single-token "
                          f"decode steps only, got s={s}")
-    q = common.apply_rope(q, positions, cfg.rope_theta)
-    if cache is None:
-        k_pos = positions
-    elif per_row:
-        # each slot's KV lands at its own fill position (unclamped, as in
-        # the reference: a free slot's index keeps growing)
-        k_pos = cache["idx"][:, None]
-    else:
-        k_pos = cache["idx"] + torch.arange(s, device=dev)
-    k = common.apply_rope(k, k_pos, cfg.rope_theta)
+    if not is_cross:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        if cache is None:
+            k_pos = positions
+        elif per_row:
+            # each slot's KV lands at its own fill position (unclamped, as
+            # in the reference: a free slot's index keeps growing)
+            k_pos = cache["idx"][:, None]
+        else:
+            k_pos = cache["idx"] + torch.arange(s, device=dev)
+        k = common.apply_rope(k, k_pos, cfg.rope_theta)
 
     new_cache = None
     if per_row:
@@ -118,10 +135,17 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelCfg, pol,
         k_use, v_use = cache["k"], cache["v"]
     else:
         k_use, v_use = k, v
-        kv_len = torch.full((b,), s, dtype=torch.int32, device=dev)
+        if kv_from_valid is None:
+            kv_len = torch.full((b,), skv, dtype=torch.int32, device=dev)
+        elif kv_from_valid.dim() == 2:
+            kv_len = kv_from_valid.to(torch.int32).sum(-1, dtype=torch.int32)
+        else:
+            kv_len = kv_from_valid.to(torch.int32).sum(
+                dtype=torch.int32).expand(b).contiguous()
         pos_q = positions if positions.dim() == 1 else positions[0]
         q_offset = pos_q[:1].to(torch.int32)
 
+    causal = causal and not is_cross
     if attn_pols is not None:
         o = td_attention(q, k_use, v_use, attn_pols,
                          common.fold_key(key, 4), causal=causal,

@@ -1,4 +1,4 @@
-"""Model API of the decoder family (port of the decoder entries of
+"""Model API over the two families, decoder-only and enc-dec (port of
 `repro/models/model_api.py`):
 
   init(seed, cfg, pol)                          -> params
@@ -6,19 +6,22 @@
   prefill(params, batch, cfg, pol, s_cache)     -> (last_logits, state)
   decode_step(params, tok, state, cfg, pol)     -> (logits, state)
 
-`state` is {"layers": [...per-layer cache...], "enc_out": None}.  With
-``true_len`` the prefill serves a right-padded bucket and returns the
-logits at each row's true last position; a decode step on per-row caches
-(the serving engine's ragged slots) puts each row's query at its own fill
-index.  `matmul_shapes` is the energy meter's ledger of every matmul a
-token runs.  The enc-dec family comes later.
+`state` is {"layers": [...per-layer cache...], "enc_out": None or the
+encoder's output (B, S_src, d)}.  A batch holds "tokens" and, for a stub
+frontend or an enc-dec model, "embeds" (the precomputed patch or frame
+embeddings); a decoder's train loss skips the logits of the frontend
+positions.  With ``true_len`` the decoder prefill serves a right-padded
+bucket and returns the logits at each row's true last position; a decode
+step on per-row caches (the serving engine's ragged slots) puts each
+row's query at its own fill index.  `matmul_shapes` is the energy
+meter's ledger of every matmul a token runs.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelCfg
-from repro_torch.models import common, transformer
+from repro_torch.models import common, encdec, transformer
 from repro_torch.tdsim.energy_meter import MatmulShape
 
 
@@ -31,6 +34,8 @@ def _dec_train_loss(params, batch, cfg: ModelCfg, pol, key=None,
                     remat: str = "none"):
     logits, _, aux = transformer.forward(params, batch, cfg, pol, key=key,
                                          remat=remat)
+    if cfg.frontend is not None and "embeds" in batch:
+        logits = logits[:, batch["embeds"].shape[1]:]
     loss = common.cross_entropy(logits, batch["labels"], batch.get("mask"))
     metrics = {"ce": loss}
     for k, v in aux.items():
@@ -76,19 +81,62 @@ def _dec_decode(params, tok, state, cfg: ModelCfg, pol):
 
 
 # ---------------------------------------------------------------------------
+# enc-dec family
+# ---------------------------------------------------------------------------
+def _ed_init(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
+             device=None):
+    return encdec.init_params(seed, cfg, pol, dtype, device)
+
+
+def _ed_train_loss(params, batch, cfg: ModelCfg, pol, key=None,
+                   remat: str = "none"):
+    enc_out = encdec.encode(params, batch["embeds"], cfg, pol, key=key,
+                            remat=remat)
+    logits, _ = encdec.decode(params, batch["tokens"], enc_out, cfg, pol,
+                              key=key, remat=remat)
+    loss = common.cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return loss, {"ce": loss, "loss": loss}
+
+
+def _ed_prefill(params, batch, cfg: ModelCfg, pol, s_cache: int,
+                cache_dtype=torch.bfloat16):
+    enc_out = encdec.encode(params, batch["embeds"], cfg, pol)
+    b = batch["tokens"].shape[0]
+    caches = encdec.init_caches(b, s_cache, cfg, cache_dtype,
+                                batch["tokens"].device)
+    logits, caches = encdec.decode(params, batch["tokens"], enc_out, cfg,
+                                   pol, caches=caches)
+    return logits[:, -1:], {"layers": caches, "enc_out": enc_out}
+
+
+def _ed_decode(params, tok, state, cfg: ModelCfg, pol):
+    caches = state["layers"]
+    pos = torch.full((1,), caches[0]["self"]["idx"], dtype=torch.int32,
+                     device=tok.device)
+    logits, new_caches = encdec.decode(params, tok, state["enc_out"], cfg,
+                                       pol, caches=caches, positions=pos)
+    return logits[:, -1], {"layers": new_caches,
+                           "enc_out": state["enc_out"]}
+
+
+# ---------------------------------------------------------------------------
 # energy-meter ledger: every matmul per token, layer counts folded in
 # ---------------------------------------------------------------------------
 def matmul_shapes(cfg: ModelCfg) -> list[MatmulShape]:
-    """The matmuls one token runs through an attention decoder (attention
-    projections, the SwiGLU MLP or the MoE's top_k experts and router,
-    lm_head), each with its layer count, as the reference's ledger lists
-    them."""
-    if cfg.family != "decoder" or cfg.rwkv is not None or \
-            cfg.ssm is not None or \
+    """The matmuls one token runs (attention projections, the SwiGLU MLP
+    or the MoE's top_k experts and router; an enc-dec model's encoder and
+    cross-attention; lm_head), each with its layer count, as the
+    reference's ledger lists them.  Its quirks are kept: the enc-dec
+    entries count each encoder attention projection and cross-attention
+    projection at (d, Hq * Dh) and the encoder's three MLP matmuls at (d,
+    d_ff); the adapter is not in the ledger, and lm_head is counted
+    with tied embeddings too."""
+    if cfg.rwkv is not None or cfg.ssm is not None or \
             any(cfg.mixer_at(i) != "attn" for i in range(cfg.n_layers)):
         raise NotImplementedError(
             f"matmul_shapes of {cfg.name!r}: only attention decoders, dense "
-            "and MoE, are ported (ROADMAP.md §1, step 13)")
+            "and MoE, and the enc-dec family are ported (ROADMAP.md §1, "
+            "step 13)")
     d, hd = cfg.d_model, cfg.hd
     hq, hkv, n = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
     out = [MatmulShape("attn.q", d, hq * hd, n),
@@ -105,12 +153,19 @@ def matmul_shapes(cfg: ModelCfg) -> list[MatmulShape]:
         out += [MatmulShape("mlp.wi", d, cfg.d_ff, n),
                 MatmulShape("mlp.wg", d, cfg.d_ff, n),
                 MatmulShape("mlp.wo", cfg.d_ff, d, n)]
+    if cfg.family == "encdec":
+        n_enc = cfg.n_enc_layers or n
+        out += [MatmulShape("enc.attn", d, hq * hd, 4 * n_enc),
+                MatmulShape("enc.mlp", d, cfg.d_ff, 3 * n_enc),
+                MatmulShape("dec.xattn", d, hq * hd, 4 * n)]
     return out + [MatmulShape("lm_head", d, cfg.vocab, 1.0)]
 
 
 _API = {
     "decoder": dict(init=_dec_init, train_loss=_dec_train_loss,
                     prefill=_dec_prefill, decode_step=_dec_decode),
+    "encdec": dict(init=_ed_init, train_loss=_ed_train_loss,
+                   prefill=_ed_prefill, decode_step=_ed_decode),
 }
 
 

@@ -5,10 +5,14 @@ Layer anatomy (pre-norm residual):
     x += attn(ln1(x))
     x += ffn(ln2(x))        ffn in {swiglu, moe}
 
-The other mixers (mamba2, rwkv6, shared attention), the RWKV channel mix,
-per-layer FFN patterns, stub frontends and tied embeddings come with their
-families.  `forward` returns the layers' aux losses (the MoE's), summed
-in layer order.
+Stub frontends (a VLM's vision tower, as the reference's): ``embeds``,
+precomputed patch embeddings (B, Nv, d_frontend), go through the
+``adapter`` dense (at the top-level policy) and are prepended to the
+token embeddings.  With ``tie_embeddings`` there is no lm_head: the
+logits are ``x @ embed.table.T``, a plain matmul as in the reference.
+The other mixers (mamba2, rwkv6, shared attention), the RWKV channel mix
+and per-layer FFN patterns come with their families.  `forward` returns
+the layers' aux losses (the MoE's), summed in layer order.
 
 Keys: layer i's mixer denses draw their noise seeds under
 ``fold_key(key, 2i)``, its FFN under ``fold_key(key, 2i + 1)``, lm_head
@@ -37,6 +41,10 @@ from repro_torch.tdsim import td_linear
 
 
 def _check_supported(cfg: ModelCfg) -> None:
+    if cfg.family == "encdec":
+        raise ValueError(f"{cfg.name}: an enc-dec model runs through "
+                         "models.encdec (model_api's 'encdec' entry), not "
+                         "the decoder stack")
     unported = []
     if cfg.family != "decoder":
         unported.append(f"family {cfg.family!r}")
@@ -44,10 +52,6 @@ def _check_supported(cfg: ModelCfg) -> None:
         unported.append("non-attention mixers")
     if cfg.rwkv is not None or cfg.ffn_pattern:
         unported.append("FFNs other than SwiGLU and MoE")
-    if cfg.frontend is not None:
-        unported.append("stub frontends")
-    if cfg.tie_embeddings:
-        unported.append("tied embeddings")
     if unported:
         raise NotImplementedError(f"{cfg.name}: {', '.join(unported)} not "
                                   "yet ported (ROADMAP.md §1, step 13)")
@@ -67,6 +71,10 @@ def init_params(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
     top = common.pol_top(pol)
     params: dict = {"embed": common.embed_init(gen, cfg.vocab, cfg.d_model,
                                                dtype, dev)}
+    if cfg.frontend is not None:
+        params["adapter"] = common.dense_init(
+            gen, cfg.d_frontend or cfg.d_model, cfg.d_model, top,
+            dtype=dtype, device=dev)
     layers = []
     for i in range(cfg.n_layers):
         pol_i = common.pol_at(pol, i)
@@ -82,9 +90,10 @@ def init_params(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
         layers.append(lp)
     params["layers"] = layers
     params["final_norm"] = common.rmsnorm_init(cfg.d_model, dtype, dev)
-    params["lm_head"] = common.dense_init(
-        gen, cfg.d_model, cfg.vocab, top, dtype=dtype,
-        scale=1.0 / cfg.d_model ** 0.5, device=dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = common.dense_init(
+            gen, cfg.d_model, cfg.vocab, top, dtype=dtype,
+            scale=1.0 / cfg.d_model ** 0.5, device=dev)
     return params
 
 
@@ -181,10 +190,25 @@ def _policy_dense(pol, key):
 
 def _head(params: dict, x: torch.Tensor, cfg: ModelCfg, top, key
           ) -> torch.Tensor:
-    """Final norm and lm_head (under ``fold_key(key, 10_000)``)."""
+    """Final norm and lm_head (under ``fold_key(key, 10_000)``), or with
+    tied embeddings the plain product with the embedding table."""
     x = common.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["table"].T
     return common.dense(params["lm_head"], x, top,
                         common.fold_key(key, 10_000))
+
+
+def _embed(params: dict, batch: dict, cfg: ModelCfg, pol) -> torch.Tensor:
+    """The token embeddings, after the adapter's projection of a stub
+    frontend's ``embeds`` when the batch has them (the adapter runs at the
+    top-level policy with no key, as in the reference)."""
+    x = common.embed(params["embed"], batch["tokens"])
+    if cfg.frontend is not None and "embeds" in batch:
+        emb = common.dense(params["adapter"], batch["embeds"],
+                           common.pol_top(pol))
+        x = torch.cat([emb.to(x.dtype), x], dim=1)
+    return x
 
 
 def forward(params: dict, batch: dict, cfg: ModelCfg, pol,
@@ -192,7 +216,9 @@ def forward(params: dict, batch: dict, cfg: ModelCfg, pol,
             positions: torch.Tensor | None = None,
             key=None, remat: str = "none"
             ) -> tuple[torch.Tensor, list | None, dict]:
-    """Returns (logits, new_caches, aux).  batch: {"tokens": (B, S)}.
+    """Returns (logits, new_caches, aux).  batch: {"tokens": (B, S)} and,
+    for a stub frontend, {"embeds": (B, Nv, d_frontend)}: the logits then
+    cover the Nv frontend positions first.
 
     ``remat="full"`` recomputes each layer in the backward
     (`torch.utils.checkpoint`, the reference's `jax.checkpoint`), keeping
@@ -207,7 +233,7 @@ def forward(params: dict, batch: dict, cfg: ModelCfg, pol,
     _check_supported(cfg)
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat={remat!r}: none, dots or full")
-    x = common.embed(params["embed"], batch["tokens"])
+    x = _embed(params, batch, cfg, pol)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     x, new_caches, aux = _walk(params, x, cfg, _policy_dense(pol, key),

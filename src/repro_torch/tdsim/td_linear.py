@@ -91,13 +91,23 @@ def td_matmul_int(x_int: torch.Tensor, w_int: torch.Tensor, pol: TDPolicy,
     return main - corr_w - corr_x + k * ox * ow
 
 
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with the reference's promotion: operands of two float
+    dtypes (float32 frame embeddings against bf16 weights) multiply in
+    the wider one, as `jnp.matmul` does; torch's matmul refuses them."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def _fq_matmul(x, w, s_a, s_w, bits_a: int, bits_w: int, lanes: int = 1):
     """Differentiable fake-quant LSQ matmul: the STE backward function and
     the forward of "quant" mode.  ``lanes`` > 1: x (E, ..., K) and w
     (E, K, N) are E lanes sharing s_a and s_w (`td_matmul_experts`)."""
     x_fq = lsq.lsq_fake_quant(x, s_a, bits_a, signed=True, lanes=lanes)
     w_fq = lsq.lsq_fake_quant(w, s_w, bits_w, signed=True, lanes=lanes)
-    return x_fq @ w_fq
+    return _matmul(x_fq, w_fq)
 
 
 class _TDMatmulSTE(torch.autograd.Function):
@@ -131,7 +141,7 @@ def td_matmul(x: torch.Tensor, w: torch.Tensor, s_a, s_w, pol: TDPolicy,
     w (K, N); ``key`` a raw two-word uint32 PRNG key, None meaning
     ``(0, 0)``."""
     if pol.mode == "precise":
-        return x @ w
+        return _matmul(x, w)
     if pol.mode == "quant":
         return _fq_matmul(x, w, s_a, s_w, pol.bits_a, pol.bits_w)
     if pol.mode != "td":
@@ -242,7 +252,7 @@ def linear(params: dict, x: torch.Tensor, pol: TDPolicy,
     """Linear layer dispatching on the policy.  params holds 'w' (K, N),
     optional 'b' (N,), and when quantized 's_a', 's_w' scalars."""
     if pol.mode == "precise":
-        y = x @ params["w"]
+        y = _matmul(x, params["w"])
     else:
         y = td_matmul(x, params["w"], params["s_a"], params["s_w"], pol, key)
     if "b" in params:

@@ -8,6 +8,7 @@ runs one whole-sequence tile), bf16 atol 2e-2 (one bf16 ulp at the
 outputs' magnitude, which stays below 2).  Rows with no live key are 0 in
 both, exactly.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,7 @@ blocks.  Tolerances as in test_torch_attention.py: f32 atol 1e-5 (sums in
 another order), bf16 atol 2e-2 (one bf16 ulp at the outputs' magnitude).
 Rows with no live key are exactly 0.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

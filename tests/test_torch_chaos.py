@@ -15,6 +15,7 @@ under a fault schedule, against the reference (`repro.ft.chaos`,
   mode gives the fault-free tokens, in both packages, on the same
   parameters (float32 compute: XLA's CPU jit drops bf16 roundings).
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import time
 
 import numpy as np

@@ -11,6 +11,7 @@ tokens identical, prefill logits within 1e-4 and the caches' keys
 within 1e-2 (bf16 caches).  The configs' fields equal the reference's;
 the ledgers are equal entry for entry.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import dataclasses
 
 import numpy as np

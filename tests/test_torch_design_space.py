@@ -21,6 +21,7 @@ JAX reference (`repro.core`), on the CPU.
 * The explorer service: memo hits with the reference's stats counts,
   copies returned, the unported options raising.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import json
 import os
 

@@ -23,6 +23,7 @@ and `ContinuousBatchingEngine(adapt=True)`) against the reference
   The port's scripted replay of its swap_log gives the same tokens, with
   the decode step built once and no new td_vmm operand.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import sys
 import threading
 

@@ -13,6 +13,7 @@ energy telemetry against the JAX reference, on the CPU.
   the total is the rate times the tokens (rtol 1e-9).
 * The serve CLI prints J/token in both modes.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 

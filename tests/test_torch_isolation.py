@@ -2,6 +2,7 @@
 `chip_smoke.py`, imports jax or the reference package `repro`, and the
 port's entry points run on CUDA by default, raising (not falling back to
 the CPU) where there is none."""
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import ast
 import pathlib
 import subprocess

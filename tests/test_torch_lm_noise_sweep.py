@@ -15,6 +15,7 @@ batched search over it, and the per-layer policy file.
   matmuls).  Noisy probes are not compared with the reference: the
   Box-Muller z differs in the last ulps, which may flip a prediction.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import json
 
 import numpy as np

@@ -11,6 +11,7 @@ bfloat16; the gradient ``dv`` is bit-exact; ``ds`` (a sum over the tensor,
 reduced in another order) agrees to rtol 1e-5 in float32 and to one bf16
 rounding (rtol 2^-7) in bfloat16.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -19,6 +19,7 @@ mode); both sides get the reference's `moe_init` parameters.  Tolerances:
 * the expert lanes' gradients (x, the weight stack, s_a, s_w) against
   ``jax.grad`` of the reference's `_expert_mm`: within 1e-5 relative.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import dataclasses
 
 import numpy as np

@@ -9,6 +9,7 @@ precise, quant and td at sigma 0: tokens identical to the reference's
 and logits within 1e-4; in precise mode the decode logits also equal
 teacher forcing (the forward over the whole sequence) within 1e-4.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import dataclasses
 
 import numpy as np

@@ -12,6 +12,7 @@ The reference runs under `jax.jit` in float32.  Tolerances:
   relative (XLA's jit takes a mean as a product with 1/n, an ulp off the
   division: ``moe_dropped`` 0.18749994 against the port's 0.1875).
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

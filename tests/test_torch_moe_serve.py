@@ -10,6 +10,7 @@ reference engine's, and the meter's J/token within rtol 1e-4.  At that
 capacity a decode step's 3 rows share top_k = 2 slots an expert, so rows
 of a batch can drop each other's tokens: the coupling the reference has.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 

@@ -10,6 +10,7 @@ exact-regime policy, noise on); quant (2 layers) is
 `tests/test_torch_moe_train_quant.py`.  Tolerances as
 `tests/test_torch_train_step.py` (`torch_train_parity.check_float32_steps`).
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 from torch_train_parity import archs, check_float32_steps
 
 

@@ -17,6 +17,7 @@ and the Monte-Carlo check of the chain statistics
   5 sigma / sqrt(n_mc) and std within 5% of `chain_stats`, the
   reference test's bounds (tests/test_core_cells.py).
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ keys).  A technology library compares by `content_hash`.  Each port path
 is held to the same reference path (`solve_network_policies` to the
 reference's `solve_network_policies`, not to its scalar wrapper).
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import dataclasses
 import json
 

@@ -9,6 +9,7 @@ equals the reference's in every integer and operating-point field, and in
 sigma_chain to 1e-6 relative (the reference's compiled solve fuses
 multiply-adds, the port rounds each op: an ulp apart at some keys).
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ vectors equal.  The batch has a free row whose index has passed the cache
 length: its write lands at the last position (the reference's clamp) and
 its RoPE position stays unclamped.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ convs run the Pallas td_vmm in interpret mode.  Tolerances:
 * logits at sigma 0 (precise, quant, td) within rtol/atol 1e-4 and the
   argmax equal.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

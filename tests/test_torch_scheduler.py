@@ -20,6 +20,7 @@ numpy-seeded ragged requests.
   engine's, in the reference as in the port: a near tie that the batch's
   summation order decides.  The engines agree with each other there.)
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

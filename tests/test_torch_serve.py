@@ -20,6 +20,7 @@ Tolerances:
   conversion to f32 (ROADMAP §3), which changes the reference's own
   numbers, while the port rounds after every op as the JAX program says.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

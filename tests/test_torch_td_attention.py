@@ -31,6 +31,7 @@ moves codes at near ties (1.71 in the smoke prefill's logits; ROADMAP
 §3).  The port divides as the reference's program is written, and equals
 its op-by-op run.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ kernel's plain PyTorch version.  Tolerances:
   difference a multiple of tdc_q (a z near a rounding boundary flips one
   plane's TDC step, q * 2^b).
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

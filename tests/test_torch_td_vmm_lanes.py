@@ -12,6 +12,7 @@ over the lanes.  Tolerances:
   `test_torch_td_vmm.py::test_noisy_outputs_agree_up_to_rare_tdc_flips`
   (at most 1% of entries differ, each by a multiple of tdc_q).
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ them in order.  Tolerances:
 * bit-identical to `td_vmm_plain` with noise: the same noise indices, the
   same float operations in the same order.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import dataclasses
 
 import numpy as np

@@ -14,6 +14,7 @@ not (the einsums run at other shapes), to rtol 1e-5 / atol 1e-6; remat
 loop's float32 losses (`launch.train.run`) agree to rtol 1e-5 with the
 reference's.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

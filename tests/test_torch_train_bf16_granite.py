@@ -19,6 +19,7 @@ except at most 3% of entries, which may differ by AdamW's sign flip
 (`torch_train_parity.assert_params_close`: a bf16 gradient within
 rounding of 0 changes sign).
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 

@@ -10,6 +10,7 @@ gradient norms rtol 1e-5, parameters within 1e-7 + 1e-6 relative with at
 most 0.1% of entries allowed AdamW's sign flip; and the gradient norm
 differs from the float32 sum's (the same loss).
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import torch
 

@@ -18,6 +18,7 @@ against the reference (`repro.checkpoint.ckpt`, `repro.launch.train`).
   the reference's chaos bench requires of the reference; the CLI's
   ``--ckpt-dir`` resumes from the newest step.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import json
 import os
 import time

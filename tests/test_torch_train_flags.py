@@ -13,6 +13,7 @@ model (2 layers, d 64, 8 experts top-2), the one config that trains with
   `build_forward_eval` within rtol 1e-6 (quant and td at sigma 0, f32),
   with no gradient kept.
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ another order; the td noise matches bit for bit, see
 after two steps, with at most 0.1% of entries allowed AdamW's sign flip
 (`torch_train_parity.assert_params_close`; none occur on these inputs).
 """
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import pytest
 

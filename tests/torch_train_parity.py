@@ -2,6 +2,7 @@
 one train step builder from each package on the same converted parameters
 and the same numpy batches, and the parameter comparison with AdamW's sign
 flips stated.  Not a test module itself."""
+import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import numpy as np
 import torch
 
@@ -39,8 +40,10 @@ def archs(name: str, mode: str, dtype: str, n_micro: int = 2,
     for cfgs, td, train in ((jcfgs, JTD, JTrain), (tcfgs, TTD, TTrain)):
         a = cfgs.get_smoke(name)
         if n_layers is not None:
+            # an enc-dec model's encoder is cut to the same depth
             a = a.replace(model=a.model.__class__(**{
-                **a.model.__dict__, "n_layers": n_layers}))
+                **a.model.__dict__, "n_layers": n_layers,
+                "n_enc_layers": n_layers if a.model.n_enc_layers else 0}))
         pair.append(a.replace(
             td=td(mode=mode, n_chain=min(576, a.model.d_model)),
             train=train(n_microbatches=n_micro, remat=remat,
@@ -70,6 +73,21 @@ def _oracle_td_vmm(x_int, w_int, pol, seed):
     return out.reshape(*lead, n)
 
 
+def frontend_batch(stream, i: int, cfg, hb: dict) -> dict:
+    """Step i's batch as both packages' `train.run` builds it for a stub
+    frontend or an enc-dec model: precomputed embeddings of max(4, min(16,
+    seq // 4)) positions, and a decoder's tokens and labels cut to make
+    room for them."""
+    seq = hb["tokens"].shape[1]
+    n_vis = max(4, min(16, seq // 4))
+    hb = {**hb, "embeds": stream.frontend_batch(
+        i, n_vis, cfg.d_frontend or cfg.d_model)}
+    if cfg.family != "encdec":
+        hb["tokens"] = np.ascontiguousarray(hb["tokens"][:, :-n_vis])
+        hb["labels"] = np.ascontiguousarray(hb["labels"][:, n_vis:])
+    return hb
+
+
 def run_both(ja, ta, steps: int, jit: bool, monkeypatch):
     """``steps`` train steps in each package from the same parameters and
     batches.  Returns (reference losses, port losses, reference grad norms,
@@ -88,6 +106,8 @@ def run_both(ja, ta, steps: int, jit: bool, monkeypatch):
     out = {k: [] for k in ("jl", "tl", "jg", "tg", "lr")}
     for i in range(steps):
         hb = stream.batch(i)
+        if ja.model.frontend is not None:
+            hb = frontend_batch(stream, i, ja.model, hb)
         jb = {k: jnp.asarray(v) for k, v in hb.items()}
         if jit:
             jp, jo, jm = jstep(jp, jo, jb, jnp.uint32(i))
