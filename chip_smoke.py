@@ -42,7 +42,8 @@
    ragged requests of 64-128 prompt and 8-16 new tokens into 8 slots of
    192 tokens, and the reference's serving gate (`bench_serving`: 256
    streams of 8-16 prompt and 16-32 new tokens into 16 slots of 64
-   tokens), each also in lockstep (``continuous=False``) for its step
+   tokens; qwen3-8b cut to 4 layers, its lockstep baseline too), each
+   also in lockstep (``continuous=False``) for its step
    count and tokens/s; serves the first traffic once more with per-layer
    budgets (exact, 1.0, 2.0 cycled over the layers) at the vdd-opt
    scenario's ss corner; each path prints J/token in the three domains
@@ -96,7 +97,22 @@
    microbatches over a batch of 16 x 128), the smoke model and qwen3-8b's
    smoke model with tied embeddings on the card against the CPU, and the
    kernels at its shapes (td_vmm at the adapter, K 3200, and lm_head, N
-   92672; flash_attn and decode_gqa at D 128, g 6);
+   92672; flash_attn and decode_gqa at D 128, g 6); then `phase_zamba2`
+   and `phase_rwkv6`: zamba2-1.2b (38 layers: 32 mamba2 mixers, the
+   shared attention block at 6 sites, run at the top-level policy) and
+   rwkv6-1.6b (24 layers of time and channel mix) at their published
+   widths and depths, td, served in the fixed batch above, then through
+   the prefill and serve steps at B 1 x 128 and B 1 x 4096 prompt tokens
+   (4 decode steps each: decode ms against context), their scans
+   (`ssd_chunked`, `wkv6_scan`) timed alone at the prefill shapes
+   (kernels a call, device time, event pair, host enqueue) beside the
+   kernels of one prefill and one decode step, trained at the configs' 4
+   microbatches and remat full (2 td steps, 1 quant; not cut), the smoke
+   models on the card against the CPU, and the kernels at their shapes
+   (td_vmm at mamba2's in_proj, N 8384, and both lm_heads, N 32000 and
+   65536, bit for bit with noise; flash_attn and decode_gqa at D 64, g
+   1, zamba2 only, timed against SDPA; lsq_quant on the new weights);
+   flash_attn and decode_gqa must show no launch on rwkv6's paths;
    then runs the paper's noise loop on full-width ResNet20-CIFAR
    (`phase_noise_loop`, 22 sites, n_chain 576): 150 quant-mode SGD steps
    on 512 synthetic images, the per-site batched sigma_max search (286
@@ -194,11 +210,14 @@ TRAIN = dict(layers=4, seq=128, batch=8, td_steps=3, quant_steps=1)
 # rounded to 192 by the KV plan; prompts as long as the fixed-batch serve's.
 # "scheduler_bench": the reference's serving gate
 # (benchmarks/bench_serving.py:44, its request seed 7), 256 ragged streams
-# (prompts 8-16, 16-32 new tokens) into 16 slots of 48 tokens, rounded to 64.
+# (prompts 8-16, 16-32 new tokens) into 16 slots of 48 tokens, rounded to
+# 64, on qwen3-8b cut to 4 of its 36 layers (the engine and its lockstep
+# baseline alike: the gate compares their steps and tokens/s, and 36
+# host-bound layers took the room of the zamba2 and rwkv6 phases).
 SCHED = dict(capacity=8, s_cache=144, kv_block=64, requests=16,
              prompt_len=128, gen=16, seed=1)
 BENCH_SCHED = dict(capacity=16, s_cache=48, kv_block=64, requests=256,
-                   prompt_len=16, gen=32, seed=7)
+                   prompt_len=16, gen=32, seed=7, layers=4)
 SCHED_PATHS = {"scheduler": SCHED, "scheduler_bench": BENCH_SCHED}
 # the fault-tolerance phases' engines, full-width qwen3-8b.  "drift_traces":
 # benchmarks/bench_drift_traces.py at its smoke traffic (8 streams, capacity
@@ -1552,11 +1571,12 @@ def _counts_reset(mods: dict) -> None:
 
 def serve_expected(cfg, steps: int, admissions: int = 1) -> dict:
     """Launches of a td serve (fixed batch: one admission; an engine: one
-    a request): each forward runs 7 td_vmm launches a layer (wq, wk, wv,
-    wo; and wg, wi, wo, dense or over the experts' lanes) and lm_head's
-    (none with tied embeddings), a prefill also a stub frontend's
-    adapter; flash_attn once a layer an admission, decode_gqa once a
-    layer a decode step.  An enc-dec model's prefill runs the adapter,
+    a request): each forward runs the layers' td denses (`layer_denses`:
+    7 a dense attention layer, wq, wk, wv, wo and wg, wi, wo, dense or
+    over the experts' lanes) and lm_head's (none with tied embeddings), a
+    prefill also a stub frontend's adapter; flash_attn once an attention
+    layer an admission, decode_gqa once an attention layer a decode step
+    (none in a mamba2 or rwkv6 layer).  An enc-dec model's prefill runs the adapter,
     7 a layer of its encoder, 11 a decoder layer (self-attention,
     cross-attention, SwiGLU) and lm_head, each decode step the decoder
     again (the cross-attention's K and V recomputed from the encoder's
@@ -1571,16 +1591,33 @@ def serve_expected(cfg, steps: int, admissions: int = 1) -> dict:
                 "decode_gqa": L * steps, "lsq_quant": 0}
     head = 0 if cfg.tie_embeddings else 1
     adapter = admissions if cfg.frontend is not None else 0
-    return {"td_vmm": (7 * L + head) * (admissions + steps) + adapter,
-            "flash_attn": L * admissions, "decode_gqa": L * steps,
+    dense, attn = layer_denses(cfg)
+    return {"td_vmm": (dense + head) * (admissions + steps) + adapter,
+            "flash_attn": attn * admissions, "decode_gqa": attn * steps,
             "lsq_quant": 0}
+
+
+def layer_denses(cfg) -> tuple[int, int]:
+    """(td denses, attention calls) of one forward through a decoder's
+    layers: 4 denses at an attention or shared-attention site, 2 in a
+    mamba2 mixer, 5 in an rwkv6 time mix; 3 in a SwiGLU, an MoE (a lane
+    launch each over its experts) or an RWKV channel mix, none in a
+    mixer-only layer."""
+    from repro_torch.models.transformer import _ffn_kind
+    mix = {"attn": 4, "shared_attn": 4, "mamba2": 2, "rwkv6": 5}
+    ffn = {"swiglu": 3, "moe": 3, "rwkv_cm": 3, "none": 0}
+    layers = range(cfg.n_layers)
+    return (sum(mix[cfg.mixer_at(i)] + ffn[_ffn_kind(cfg, i)]
+                for i in layers),
+            sum(cfg.mixer_at(i) in ("attn", "shared_attn") for i in layers))
 
 
 def _serve_full(tag: str, arch, batch: int, prompt_len: int, gen: int,
                 launches: dict, syncs: bool = False) -> None:
     """`serve.run` of ``arch`` at full width, its launches counted, its
     times and tokens printed and checked; with ``syncs`` also its host
-    syncs a step (`step_syncs`; none allowed)."""
+    syncs a step (`step_syncs`; none allowed).  Returns `serve.run`'s
+    stats."""
     import torch
     from repro_torch.launch import serve
     cfg = arch.model
@@ -1630,6 +1667,7 @@ def _serve_full(tag: str, arch, batch: int, prompt_len: int, gen: int,
     if not all(math.isfinite(v) and v > 0 for v in j.values()):
         fail(f"{tag}: J/token {j}")
     launches[tag] = counts
+    return stats
 
 
 def phase_serve(launches: dict):
@@ -1717,8 +1755,8 @@ def _energy_report(path: str, eng, out: dict) -> None:
 
 def phase_scheduler(launches: dict):
     """The continuous-batching path: full-width qwen3-8b in td mode (bf16,
-    36 layers, seeded weights) behind `ContinuousBatchingEngine`, on the
-    two traffics of `SCHED_PATHS`, each also through the lockstep baseline
+    seeded weights; 36 layers, the serving gate's 4) behind
+    `ContinuousBatchingEngine`, on the two traffics of `SCHED_PATHS`, each also through the lockstep baseline
     (``continuous=False``) on the same requests and weights: on
     "scheduler" after the continuous run, on "scheduler_bench" before it.
     Both modes are timed alike, by the engine's own telemetry.  The
@@ -1728,17 +1766,25 @@ def phase_scheduler(launches: dict):
     import repro_torch.configs as cfgs
     from repro_torch.launch import td_cli
 
-    arch = td_cli.apply_td_args(cfgs.get("qwen3-8b"), "td")
-    cfg = arch.model
+    full = td_cli.apply_td_args(cfgs.get("qwen3-8b"), "td")
+    cfg = full.model
     mods = kernel_modules()
-    params = None                  # the first engine's seeded init, shared
+    shared = None                 # the first engine's seeded init, shared
     for path, conf in SCHED_PATHS.items():
         order = (True, False) if path == "scheduler" else (False, True)
+        arch, params = full, shared
+        if conf.get("layers"):
+            # a cut depth: its own seeded init, shared by its two runs
+            arch, params = family_arch("qwen3-8b", "td", conf["layers"]), None
+            print(f"[{path}] qwen3-8b at full width cut to {conf['layers']} "
+                  f"of {cfg.n_layers} layers, continuous and lockstep alike")
         runs = {}
         for continuous in order:
             eng, out, counts, peak = _sched_run(arch, conf, params,
                                                 continuous, mods)
             params = eng.params
+            if not conf.get("layers"):
+                shared = params
             mode = "continuous" if continuous else "lockstep"
             _sched_report(path, mode, eng, out, peak)
             runs[mode] = (eng, out, counts)
@@ -1843,9 +1889,9 @@ def family_arch(name: str, mode: str | None, n_layers: int | None = None):
 def train_expected(cfg, n_micro: int, mode: str,
                    remat: str = "full") -> dict:
     """Launches of one train step: per microbatch the forward runs every
-    dense (7 a layer + lm_head; an MoE layer's wg, wi and wo are one lane
-    launch each over its experts) and, under remat "full" or "dots", each
-    layer's 7 denses and its attention again in the backward (neither is
+    dense (`layer_denses`, + lm_head; an MoE layer's wg, wi and wo are one
+    lane launch each over its experts) and, under remat "full" or "dots",
+    each layer's denses and its attention again in the backward (neither is
     a matmul "dots" keeps); a td dense's STE backward runs lsq_quant on x
     and w, a quant dense runs it in each forward.  A stub frontend's
     adapter and lm_head run outside the layers (never rerun); an enc-dec
@@ -1857,10 +1903,9 @@ def train_expected(cfg, n_micro: int, mode: str,
         dense = in_layers + 2
         attn = le + 2 * cfg.n_layers
     else:
-        in_layers = 7 * cfg.n_layers
+        in_layers, attn = layer_denses(cfg)
         dense = in_layers + (0 if cfg.tie_embeddings else 1) + (
             cfg.frontend is not None)
-        attn = cfg.n_layers
     rerun = in_layers if remat in ("full", "dots") else 0
     out = {"flash_attn": n_micro * (2 if rerun else 1) * attn,
            "decode_gqa": 0}
@@ -4110,7 +4155,8 @@ def _steps_serve(tag: str, arch, batch: int, prompt_len: int, steps: int,
     through `steps.build_prefill_step` / `build_serve_step` on seeded
     bf16 weights: each step timed on the host clock to a device sync,
     its host syncs counted (none allowed), launches checked, logits
-    finite, tokens in range."""
+    finite, tokens in range.  Returns the steps' ms, the prefill's
+    first."""
     import torch
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.launch import serve, steps as steps_lib
@@ -4126,9 +4172,11 @@ def _steps_serve(tag: str, arch, batch: int, prompt_len: int, steps: int,
     srv = steps_lib.build_serve_step(arch, shape, device="cuda")
     toks = torch.from_numpy(serve.prompts(1, batch, prompt_len,
                                           cfg.vocab)).cuda()
-    emb = torch.from_numpy(serve.frontend_embeds(
-        1, batch, n_front, cfg.d_frontend or cfg.d_model)).to(
-            "cuda", torch.bfloat16)
+    batch_in = {"tokens": toks}
+    if n_front:
+        batch_in["embeds"] = torch.from_numpy(serve.frontend_embeds(
+            1, batch, n_front, cfg.d_frontend or cfg.d_model)).to(
+                "cuda", torch.bfloat16)
     mods = kernel_modules()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4136,7 +4184,7 @@ def _steps_serve(tag: str, arch, batch: int, prompt_len: int, steps: int,
     ms, syncs = [], []
     with torch.inference_mode(), sync_log() as log:
         t0 = time.monotonic()
-        logits, state = pre(params, {"tokens": toks, "embeds": emb})
+        logits, state = pre(params, batch_in)
         tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
         syncs.append(len(log))
         torch.cuda.synchronize()
@@ -4169,6 +4217,7 @@ def _steps_serve(tag: str, arch, batch: int, prompt_len: int, steps: int,
              f"[{int(ids.min())}, {int(ids.max())}]")
     launches[tag] = counts
     del params, state, logits
+    return ms
 
 
 def _family_small(tag: str, smoke, pol_td0, remat: str = "full") -> None:
@@ -4671,6 +4720,324 @@ def phase_frontend(launches: dict, rows: list):
           + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + ")")
 
 
+# ---------------------------------------------------------------------------
+# The sub-quadratic families at their published widths and depths:
+# zamba2-1.2b (38 layers: 32 mixer-only mamba2 layers, the shared
+# attention block at 6 sites with their SwiGLUs) and rwkv6-1.6b (24
+# layers of time and channel mix).  Serve SERVE's batch, a long context
+# (B 1 x 4096 prompt tokens against B 1 x 128, 4 decode steps each), the
+# scans alone, training at the config's 4 microbatches and remat full.
+SSM = dict(long_prompt=4096, short_prompt=128, steps=4, td_steps=2,
+           quant_steps=1)
+SSM_ARCHS = {"zamba2": "zamba2-1.2b", "rwkv6": "rwkv6-1.6b"}
+
+
+def _kernel_count(fn) -> tuple[int, float]:
+    """(device kernels, their summed device ms) of one call of ``fn``
+    under torch.profiler; (0, 0.0) when the trace holds no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(ks), sum(e.time_range.end - e.time_range.start
+                        for e in ks) / 1e3
+
+
+_VIEWS = ("view", "_unsafe_view", "permute", "slice", "select", "unsqueeze",
+          "squeeze", "expand", "alias", "as_strided", "t", "transpose",
+          "reshape")
+
+
+def _ops_count(fn) -> int:
+    """The torch ops one call of ``fn`` dispatches, views left out: about
+    one kernel launch each (no kernel of this repo is among them)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in _VIEWS:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        fn()
+    return Count.n
+
+
+def _scan_inputs(cfg, gen, b: int, s: int):
+    """(name, a call of the model's scan) at batch b, length s: float32
+    inputs of the shapes the mixer hands it."""
+    import torch
+    if cfg.ssm is not None:
+        from repro_torch.models import mamba2
+        di, nh, hp, ns, _ = mamba2.dims(cfg)
+        x = _randn(gen, (b, s, nh, hp)).float()
+        dt = mamba2.softplus(_randn(gen, (b, s, nh)).float() - 4.0)
+        a = -torch.linspace(1.0, 16.0, nh, device="cuda")
+        bm = _randn(gen, (b, s, ns)).float()
+        cm = _randn(gen, (b, s, ns)).float()
+        return "ssd_chunked", lambda: mamba2.ssd_chunked(x, dt, a, bm, cm,
+                                                         cfg.ssm.chunk)
+    from repro_torch.models import rwkv6
+    nh, hd = rwkv6.dims(cfg)
+    r, k, v = (_randn(gen, (b, s, nh, hd)).float() for _ in range(3))
+    w = torch.exp(-torch.exp(_randn(gen, (b, s, nh, hd)).float() * 0.5
+                             - 1.0))
+    u = _randn(gen, (nh, hd)).float() * 0.1
+    return "wkv6_scan", lambda: rwkv6.wkv6_scan(r, k, v, w, u)
+
+
+def _scan_report(tag: str, arch) -> None:
+    """The model's scan alone (`ssd_chunked` / `wkv6_scan`) at the serve
+    prefill's shape (B 4 x 128) and the long prefill's (B 1 x 4096): the
+    ops it dispatches a call, the kernels and their summed device time
+    the profiler records (a trace of a call of a millisecond may miss
+    some), one call in an event pair (host gaps included) and the host's
+    time to enqueue it (a scan of thousands of kernels is host- or
+    latency-bound: no spin can cover it); then the launches of one
+    prefill step of the full model and the kernels of one decode step,
+    with their summed device time against its traced wall (serve shapes,
+    after a warm-up)."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import serve, steps as steps_lib
+    from repro_torch.models import common, get_api
+    from repro_torch.optim import adamw
+    cfg = arch.model
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    for b, s in ((SERVE["batch"], SERVE["prompt_len"]),
+                 (1, SSM["long_prompt"])):
+        name, fn = _scan_inputs(cfg, gen, b, s)
+        n_ops = _ops_count(fn)
+        n_k, busy = _kernel_count(fn)
+        ev, host = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn()
+            e.record()
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            ev.append(a.elapsed_time(e))
+        ev, host = statistics.median(ev), statistics.median(host)
+        print(f"[{tag}] {name} alone, B {b} x S {s}: {n_ops} ops "
+              f"dispatched a call (views left out); the profiler records "
+              f"{n_k} kernels, {busy:.3f} ms of device time; one call in an "
+              f"event pair {ev:.3f} ms, its host enqueue {host:.3f} ms "
+              f"(medians of 3): the device busy {busy / ev:.1%} of the "
+              f"call")
+        del fn
+    torch.cuda.empty_cache()
+    pol = common.resolve_arch_policy(arch, device="cuda")
+    params = get_api(cfg)["init"](0, cfg, pol, dtype=torch.bfloat16,
+                                  device="cuda")
+    n_param = sum(t.numel() for _, t in adamw.tree_leaves_with_path(params))
+    print(f"[{tag}] {cfg.name}: {n_param / 1e9:.3f}B parameters (every "
+          f"leaf, the LSQ steps included)")
+    b, p = SERVE["batch"], SERVE["prompt_len"]
+    shape = ShapeCfg("serve", p + 2, b, "decode")
+    pre = steps_lib.build_prefill_step(arch, shape, device="cuda")
+    srv = steps_lib.build_serve_step(arch, shape, device="cuda")
+    toks = torch.from_numpy(serve.prompts(1, b, p, cfg.vocab)).cuda()
+    mods = kernel_modules()
+    with torch.inference_mode():
+        # a warm-up pass; then the prefill's launches counted (the ops it
+        # dispatches and the port's kernels: a trace of its thousands of
+        # kernels takes seconds) and one decode step traced
+        logits, state = pre(params, {"tokens": toks})
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        srv(params, tok, state)
+        _counts_reset(mods)
+        n_pre = _ops_count(lambda: pre(params, {"tokens": toks})) + sum(
+            m.launches for m in mods.values())
+        t0 = time.monotonic()
+        n_dec, d_dec = _kernel_count(lambda: srv(params, tok, state))
+        w_dec = (time.monotonic() - t0) * 1e3
+    print(f"[{tag}] one prefill step (B {b} x {p}): about {n_pre} launches "
+          f"(ops dispatched, views left out, and the port's kernels); one "
+          f"decode step: {n_dec} kernels, {d_dec:.1f} ms of device time in "
+          f"a traced wall of {w_dec:.1f} ms" + (
+              "" if n_dec else " (the trace held no device time: not "
+              "measured)"))
+    del params, state, logits
+    torch.cuda.empty_cache()
+
+
+def _ssm_phase(tag: str, launches: dict, rows: list, checks) -> None:
+    """One sub-quadratic model at its published widths and depth (not
+    cut), td (4/4, the port's solve), seeded bf16 weights: `serve.run` of
+    SERVE's batch (launches and host syncs a step checked), the prefill
+    and serve steps at B 1 x 128 and B 1 x 4096 prompt tokens with 4
+    decode steps each (host syncs checked; decode ms against context),
+    the scan alone and the kernels of a step (`_scan_report`), training
+    through `train.run` at the config's 4 microbatches and remat full (2
+    td steps, 1 quant step), the smoke model on the card against the CPU,
+    and ``checks(rows)``: the kernels at this path's shapes."""
+    import torch
+    import repro_torch.configs as cfgs
+    from repro_torch.tdsim.policy import TDPolicy
+    t_phase = time.monotonic()
+    walls: dict = {}
+
+    def lap(part: str) -> None:
+        walls[part] = time.monotonic() - t_phase - sum(walls.values())
+    name = SSM_ARCHS[tag]
+    arch = family_arch(name, "td")
+    cfg = arch.model
+    mixers = sorted({cfg.mixer_at(i) for i in range(cfg.n_layers)})
+    print(f"[{tag}] {name}: {cfg.n_layers} layers ({', '.join(mixers)}), "
+          f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}")
+    stats = _serve_full(f"{tag}_serve", arch, SERVE["batch"],
+                        SERVE["prompt_len"], SERVE["gen"], launches,
+                        syncs=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("serve")
+    ms = {}
+    for which in ("short", "long"):
+        ms[which] = _steps_serve(f"{tag}_{which}", arch, 1,
+                                 SSM[f"{which}_prompt"], SSM["steps"], 0,
+                                 launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+    (sp, *sd), (lp, *ld) = ms["short"], ms["long"]
+    print(f"[{tag}] context {SSM['short_prompt']} against "
+          f"{SSM['long_prompt']} (B 1): prefill {sp:.1f} against {lp:.1f} ms "
+          f"({lp / sp:.2f}x for {SSM['long_prompt'] // SSM['short_prompt']}x"
+          f" the tokens); decode median {statistics.median(sd):.1f} against "
+          f"{statistics.median(ld):.1f} ms a token "
+          f"({statistics.median(ld) / statistics.median(sd):.3f}x); serve "
+          f"B {SERVE['batch']} x {SERVE['prompt_len']}: prefill "
+          f"{stats['prefill_ms']:.1f} ms, decode median "
+          f"{statistics.median(stats['decode_ms']):.1f} ms")
+    lap("long context")
+    _scan_report(tag, arch)
+    lap("scans")
+    for mode in ("td", "quant"):
+        r = _train_run(f"{tag}_train_{mode}", family_arch(name, mode),
+                       SSM[f"{mode}_steps"], launches)
+        print(f"[{tag}_train_{mode}] peak {r['peak']:.2f} GiB, step ms "
+              f"{[round(t, 1) for t in r['step_ms']]}, losses "
+              f"{r['losses']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    lap("train")
+    _family_small(f"{tag}_small", cfgs.get_smoke(name),
+                  TDPolicy(mode="td", n_chain=64))
+    lap("card vs CPU")
+    checks(rows)
+    lap("kernel checks")
+    print(f"[{tag}] phase wall {time.monotonic() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + ")")
+
+
+def _ssm_train_mb() -> int:
+    """Rows of a train microbatch: TRAIN's batch over the configs' 4
+    microbatches, times its sequence."""
+    from repro_torch.configs import zamba2_1_2b
+    return TRAIN["batch"] // zamba2_1_2b.CONFIG.train.n_microbatches
+
+
+def _zamba2_kernel_checks(rows: list) -> None:
+    """The kernels at zamba2-1.2b's shapes against their plain versions on
+    the card: td_vmm at mamba2's in_proj (K 2048, N 8384: not a multiple
+    of 128) and out_proj (K 4096), the shared block's wq, the SwiGLU, and
+    lm_head (N 32000) at decode and a train microbatch; flash_attn at D
+    64, g 1 (the CUDA-core path; 32 heads of 64): the serve prefill, a
+    train microbatch and the 4096-token prefill, timed against SDPA;
+    decode_gqa at D 64, g 1 over the serve's cache and the long one;
+    lsq_quant on the new weights and activations."""
+    import torch
+    from repro_torch.configs import zamba2_1_2b as conf
+    from repro_torch.models import mamba2
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    cfg = conf.CONFIG.model
+    d, f, v, h, hd = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_heads, cfg.hd
+    di, nh, _, ns, _ = mamba2.dims(cfg)
+    n_in = 2 * di + 2 * ns + nh
+    b, p, g = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    mb, seq, lp = _ssm_train_mb(), TRAIN["seq"], SSM["long_prompt"]
+    _td_vmm_rows("zamba2", rows, gen, [
+        ("prefill mamba.in_proj", b * p, d, n_in),
+        ("decode mamba.in_proj", b, d, n_in),
+        ("prefill mamba.out_proj", b * p, di, d),
+        ("decode mamba.out_proj", b, di, d),
+        ("prefill shared wq", b * p, d, h * hd),
+        ("prefill mlp.wi", b * p, d, f),
+        ("decode mlp.wo", b, f, d),
+        ("decode lm_head", b, d, v),
+        ("train lm_head", mb * seq, d, v)])
+    bf = torch.bfloat16
+    _flash_rows("zamba2", rows, gen, [
+        ("prefill", b, p, p + g, h, h, hd, [p] * b, True, bf, bf),
+        ("train microbatch", mb, seq, seq, h, h, hd, [seq] * mb, True, bf,
+         bf),
+        ("long prefill", 1, lp, lp + SSM["steps"], h, h, hd, [lp], True,
+         bf, bf)],
+        ("prefill", "train microbatch", "long prefill"))
+    _decode_rows(rows, "zamba2", gen, h, h, hd, [
+        ("decode", b, p + g, p + g // 2),
+        ("long decode", 1, lp + SSM["steps"], lp + SSM["steps"] // 2)])
+    _lsq_rows("zamba2", rows, gen, [
+        ("mamba.in_proj", (d, n_in), bf), ("mamba.out_proj", (di, d), bf),
+        ("lm_head", (d, v), bf), ("mlp.wi", (d, f), bf),
+        ("act d_model", (mb, seq, d), bf), ("act d_inner", (mb, seq, di),
+                                            bf)], "mamba.in_proj")
+
+
+def _rwkv6_kernel_checks(rows: list) -> None:
+    """The kernels at rwkv6-1.6b's shapes against their plain versions on
+    the card: td_vmm at the time mix's 2048 x 2048 denses, the channel
+    mix's wk (N 7168) and wv (K 7168), and lm_head (N 65536) at decode and
+    a train microbatch; lsq_quant on the new weights and activations.
+    Neither attention kernel is on this path."""
+    import torch
+    from repro_torch.configs import rwkv6_1_6b as conf
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    cfg = conf.CONFIG.model
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab
+    b, p = SERVE["batch"], SERVE["prompt_len"]
+    mb, seq = _ssm_train_mb(), TRAIN["seq"]
+    _td_vmm_rows("rwkv6", rows, gen, [
+        ("prefill timemix wr", b * p, d, d),
+        ("decode timemix wo", b, d, d),
+        ("prefill chanmix wk", b * p, d, f),
+        ("decode chanmix wv", b, f, d),
+        ("decode lm_head", b, d, v),
+        ("train lm_head", mb * seq, d, v)])
+    bf = torch.bfloat16
+    _lsq_rows("rwkv6", rows, gen, [
+        ("lm_head", (d, v), bf), ("chanmix wk", (d, f), bf),
+        ("chanmix wv", (f, d), bf), ("timemix wr", (d, d), bf),
+        ("act d_model", (mb, seq, d), bf), ("act d_ff", (mb, seq, f), bf)],
+        "chanmix wk")
+
+
+def phase_zamba2(launches: dict, rows: list):
+    """zamba2-1.2b, 38 layers (`_ssm_phase`)."""
+    _ssm_phase("zamba2", launches, rows, _zamba2_kernel_checks)
+
+
+def phase_rwkv6(launches: dict, rows: list):
+    """rwkv6-1.6b, 24 layers (`_ssm_phase`); flash_attn and decode_gqa
+    must not launch on its paths."""
+    _ssm_phase("rwkv6", launches, rows, _rwkv6_kernel_checks)
+    for path, counts in launches.items():
+        if path.startswith("rwkv6") and (counts["flash_attn"]
+                                         or counts["decode_gqa"]):
+            fail(f"{path}: an attention kernel ran on an attention-free "
+                 f"model ({counts})")
+
+
 def _span_report(prof, span: str, which: slice, side: str = "host") -> None:
     """Device time of the kernels that start inside the ranges of ``span``
     (the ranges picked by ``which``), by kernel name.  A span also shows up
@@ -4861,11 +5228,12 @@ def main() -> None:
     flush_l2(release=True)
     launches: dict = {}
     with_rows = (phase_moe, phase_dense_configs, phase_encdec,
-                 phase_frontend, phase_noise_loop, phase_td_attention,
-                 phase_drift_traces)
+                 phase_frontend, phase_zamba2, phase_rwkv6, phase_noise_loop,
+                 phase_td_attention, phase_drift_traces)
     for phase in (phase_serve, phase_scheduler, phase_scheduler_scenario,
                   phase_train, phase_moe, phase_dense_configs, phase_encdec,
-                  phase_frontend, phase_noise_loop, phase_td_attention,
+                  phase_frontend, phase_zamba2, phase_rwkv6,
+                  phase_noise_loop, phase_td_attention,
                   phase_lm_noise_sweep, phase_drift_traces,
                   phase_chaos_serve, phase_chaos_train):
         gc.collect()           # engines wrapped by `_counted` form cycles

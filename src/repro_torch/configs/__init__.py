@@ -3,10 +3,10 @@
 The dense decoders ``qwen3-8b``, ``granite-8b``, ``qwen2.5-3b`` and
 ``qwen3-4b``, the MoE decoder ``granite-moe-1b-a400m``, the
 vision-frontend decoder ``internvl2-26b`` (a stub frontend: precomputed
-patch embeddings through an adapter) and the encoder-decoder
-``seamless-m4t-large-v2`` (a stub audio frontend) are ported so far;
-``dbrx-132b``, ``zamba2-1.2b`` and ``rwkv6-1.6b`` raise (ROADMAP §1 step
-13 lists them).
+patch embeddings through an adapter), the encoder-decoder
+``seamless-m4t-large-v2`` (a stub audio frontend), the mamba2 / shared
+attention hybrid ``zamba2-1.2b`` and the attention-free ``rwkv6-1.6b``
+are ported so far; ``dbrx-132b`` raises (ROADMAP §1 lists it).
 """
 from __future__ import annotations
 
@@ -23,7 +23,9 @@ _MODULES = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
     "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

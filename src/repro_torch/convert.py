@@ -38,8 +38,12 @@ def params_from_jax(tree, cfg, device=None) -> dict:
     """The port's parameters of model ``cfg`` on ``device`` (None: CUDA)
     from a numpy copy of the reference's parameter pytree (unstacked
     layers: ``scan_layers`` off).  A decoder's tree has ``layers`` (one
-    dict a layer), ``adapter`` exactly when it has a stub frontend and
-    ``lm_head`` exactly when its embeddings are not tied; an enc-dec
+    dict a layer: ``ln1``, ``ln2``, the mixer's subtree ``attn``,
+    ``mamba`` or ``timemix``, none for a shared-attention site, and the
+    FFN's ``mlp``, ``moe`` or ``chanmix``, none for a mixer-only layer),
+    ``shared_attn`` exactly when a layer is a shared-attention site,
+    ``adapter`` exactly when it has a stub frontend and ``lm_head``
+    exactly when its embeddings are not tied; an enc-dec
     tree has ``adapter``, ``embed``, ``enc_norm``, ``final_norm``,
     ``lm_head``, ``encoder`` (n_enc_layers dicts) and ``decoder``
     (n_layers dicts, each with ``xattn`` and ``ln_x``)."""
@@ -56,13 +60,29 @@ def params_from_jax(tree, cfg, device=None) -> dict:
                              f", expected {sorted(want)} and decoder "
                              "layers with xattn and ln_x")
         return params
+    from repro_torch.models.transformer import _ffn_kind, _has_shared
     _check_list(params, "layers", cfg.n_layers)
     for name, want in (("adapter", cfg.frontend is not None),
-                       ("lm_head", not cfg.tie_embeddings)):
+                       ("lm_head", not cfg.tie_embeddings),
+                       ("shared_attn", _has_shared(cfg))):
         if (name in params) != want:
             raise ValueError(f"{cfg.name}: the parameter tree "
                              f"{'lacks' if want else 'has'} {name!r}")
+    for i, lp in enumerate(params["layers"]):
+        want = {"ln1", "ln2", _MIXER_LEAF[cfg.mixer_at(i)],
+                _FFN_LEAF[_ffn_kind(cfg, i)]} - {None}
+        if set(lp) != want:
+            raise ValueError(f"{cfg.name}: layer {i} has {sorted(lp)}, "
+                             f"expected {sorted(want)}")
     return params
+
+
+# the subtree of each mixer and FFN kind in a decoder layer (the shared
+# attention block's weights live at the top, under "shared_attn")
+_MIXER_LEAF = {"attn": "attn", "shared_attn": None, "mamba2": "mamba",
+               "rwkv6": "timemix"}
+_FFN_LEAF = {"swiglu": "mlp", "moe": "moe", "rwkv_cm": "chanmix",
+             "none": None}
 
 
 def _check_list(params: dict, name: str, n: int) -> None:

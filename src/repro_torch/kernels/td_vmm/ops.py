@@ -29,11 +29,16 @@ _params: dict[tuple, torch.Tensor] = {}
 
 def runtime_operands(sigma: float, tdc_q: float, device) -> torch.Tensor:
     """The memoized params f32 [sigma, q] of a solved policy on
-    ``device``."""
-    key = (torch.device(device), float(sigma), float(tdc_q))
+    ``device``.  The first call of a policy copies them to the card from
+    pinned memory, without waiting for the device (a plain copy from the
+    host would be a host sync inside the step that makes it)."""
+    device = torch.device(device)
+    key = (device, float(sigma), float(tdc_q))
     if key not in _params:
-        _params[key] = torch.tensor([float(sigma), float(tdc_q)],
-                                    dtype=torch.float32, device=device)
+        t = torch.tensor([float(sigma), float(tdc_q)], dtype=torch.float32)
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        _params[key] = t.to(device)
     return _params[key]
 
 

@@ -80,13 +80,18 @@ def build_train_step(arch: ArchConfig, shape: ShapeCfg, device=None):
             mets.append({n: m.detach() for n, m in metrics.items()})
             if own_sum:
                 for p, acc in zip(leaves, sums):
-                    acc.add_(p.grad.to(ar_dt))
+                    if p.grad is not None:
+                        acc.add_(p.grad.to(ar_dt))
                     p.grad = None
         by_id = {}
         for j, p in enumerate(leaves):
             if own_sum:
                 by_id[id(p)] = sums[j].div_(torch.full(
                     (), n_micro, dtype=ar_dt, device=p.device))
+            elif p.grad is None:
+                # a leaf the loss never reads (a mixer-only layer's ln2):
+                # jax.grad's zeros
+                by_id[id(p)] = torch.zeros_like(p)
             else:
                 by_id[id(p)] = (p.grad.div_(n_micro) if n_micro > 1
                                 else p.grad)

@@ -13,8 +13,9 @@ embeddings); a decoder's train loss skips the logits of the frontend
 positions.  With ``true_len`` the decoder prefill serves a right-padded
 bucket and returns the logits at each row's true last position; a decode
 step on per-row caches (the serving engine's ragged slots) puts each
-row's query at its own fill index.  `matmul_shapes` is the energy
-meter's ledger of every matmul a token runs.
+row's query at its own fill index; a decode step takes its position from
+the first KV cache, or none for a pure-SSM model.  `matmul_shapes` is the
+energy meter's ledger of every matmul a token runs.
 """
 from __future__ import annotations
 
@@ -69,9 +70,13 @@ def _dec_prefill(params, batch, cfg: ModelCfg, pol, s_cache: int,
 
 def _dec_decode(params, tok, state, cfg: ModelCfg, pol):
     caches = state["layers"]
-    idx = caches[0]["idx"]
-    if isinstance(idx, torch.Tensor):
-        # per-slot ragged caches: one query position per row
+    # the position is the fill index of the first KV cache (all equal
+    # across layers; a per-row (B,) vector for ragged serving slots); a
+    # pure-SSM model has none, and no RoPE to read it
+    idx = next((c["idx"] for c in caches if "idx" in c), None)
+    if idx is None:
+        pos = torch.zeros((1,), dtype=torch.int32, device=tok.device)
+    elif isinstance(idx, torch.Tensor):
         pos = idx[:, None]
     else:
         pos = torch.full((1,), idx, dtype=torch.int32, device=tok.device)
@@ -123,27 +128,44 @@ def _ed_decode(params, tok, state, cfg: ModelCfg, pol):
 # energy-meter ledger: every matmul per token, layer counts folded in
 # ---------------------------------------------------------------------------
 def matmul_shapes(cfg: ModelCfg) -> list[MatmulShape]:
-    """The matmuls one token runs (attention projections, the SwiGLU MLP
-    or the MoE's top_k experts and router; an enc-dec model's encoder and
-    cross-attention; lm_head), each with its layer count, as the
-    reference's ledger lists them.  Its quirks are kept: the enc-dec
-    entries count each encoder attention projection and cross-attention
+    """The matmuls one token runs, each with its layer count, as the
+    reference's ledger lists them: attention projections at the attention
+    and shared-attention sites, mamba2's in and out projections, rwkv6's
+    five time-mix denses, then the FFN (the RWKV channel mix, the MoE's
+    top_k experts and router, or the SwiGLU MLP), an enc-dec model's
+    encoder and cross-attention, and lm_head.  Its quirks are kept: the
+    FFN entries count every layer (zamba2's ``mlp.*`` at all 38 layers,
+    though only its 6 shared sites have a SwiGLU), the enc-dec entries
+    count each encoder attention projection and cross-attention
     projection at (d, Hq * Dh) and the encoder's three MLP matmuls at (d,
-    d_ff); the adapter is not in the ledger, and lm_head is counted
-    with tied embeddings too."""
-    if cfg.rwkv is not None or cfg.ssm is not None or \
-            any(cfg.mixer_at(i) != "attn" for i in range(cfg.n_layers)):
-        raise NotImplementedError(
-            f"matmul_shapes of {cfg.name!r}: only attention decoders, dense "
-            "and MoE, and the enc-dec family are ported (ROADMAP.md §1, "
-            "step 13)")
+    d_ff); the adapter is not in the ledger, and lm_head is counted with
+    tied embeddings too."""
     d, hd = cfg.d_model, cfg.hd
     hq, hkv, n = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
-    out = [MatmulShape("attn.q", d, hq * hd, n),
-           MatmulShape("attn.k", d, hkv * hd, n),
-           MatmulShape("attn.v", d, hkv * hd, n),
-           MatmulShape("attn.o", hq * hd, d, n)]
-    if cfg.moe is not None:
+    mixers = [cfg.mixer_at(i) for i in range(n)]
+    n_attn = sum(m in ("attn", "shared_attn") for m in mixers)
+    n_mamba = mixers.count("mamba2")
+    n_rwkv = mixers.count("rwkv6")
+    out = []
+    if n_attn:
+        out += [MatmulShape("attn.q", d, hq * hd, n_attn),
+                MatmulShape("attn.k", d, hkv * hd, n_attn),
+                MatmulShape("attn.v", d, hkv * hd, n_attn),
+                MatmulShape("attn.o", hq * hd, d, n_attn)]
+    if n_mamba and cfg.ssm:
+        di = cfg.ssm.expand * d
+        nh = di // cfg.ssm.head_dim
+        out += [MatmulShape("mamba.in", d,
+                            2 * di + 2 * cfg.ssm.d_state + nh, n_mamba),
+                MatmulShape("mamba.out", di, d, n_mamba)]
+    if n_rwkv:
+        out += [MatmulShape(f"rwkv.{nm}", d, d, n_rwkv)
+                for nm in ("r", "k", "v", "g", "o")]
+    if cfg.rwkv is not None:
+        out += [MatmulShape("cm.k", d, cfg.d_ff, n),
+                MatmulShape("cm.v", cfg.d_ff, d, n),
+                MatmulShape("cm.r", d, d, n)]
+    elif cfg.moe is not None:
         f, act = cfg.moe.d_ff_expert, cfg.moe.top_k
         out += [MatmulShape("moe.wi", d, f, n * act),
                 MatmulShape("moe.wg", d, f, n * act),

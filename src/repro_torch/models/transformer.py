@@ -1,18 +1,27 @@
-"""Decoder-only stack for the attention family, dense and MoE (port of
-`repro/models/transformer.py`), with the layer loop unrolled.
+"""The decoder-only stack (port of `repro/models/transformer.py`): the
+dense, MoE, hybrid (zamba2) and attention-free (rwkv6) families through
+per-layer mixer dispatch, with the layer loop unrolled.
 
 Layer anatomy (pre-norm residual):
-    x += attn(ln1(x))
-    x += ffn(ln2(x))        ffn in {swiglu, moe}
+    x += mixer(ln1(x))      mixer in {attn, shared_attn, mamba2, rwkv6}
+    x += ffn(ln2(x))        ffn   in {swiglu, moe, rwkv_cm, none}
+
+The mixer of layer i is ``cfg.mixer_at(i)``, its FFN `_ffn_kind(cfg, i)`
+(``cfg.ffn_pattern`` when given; "none" is a mixer-only layer, whose
+``ln2`` is never read).  "shared_attn" (zamba2) applies one weight-tied
+attention block, ``params["shared_attn"]``, at several depths: it was
+initialised under the top-level policy and runs under it at every site
+(also under ``--td-per-layer``), each site with its own key and KV cache.
+The RWKV channel mix's token shift ``shift_c`` rides in the layer's
+time-mix state.
 
 Stub frontends (a VLM's vision tower, as the reference's): ``embeds``,
 precomputed patch embeddings (B, Nv, d_frontend), go through the
 ``adapter`` dense (at the top-level policy) and are prepended to the
 token embeddings.  With ``tie_embeddings`` there is no lm_head: the
 logits are ``x @ embed.table.T``, a plain matmul as in the reference.
-The other mixers (mamba2, rwkv6, shared attention), the RWKV channel mix
-and per-layer FFN patterns come with their families.  `forward` returns
-the layers' aux losses (the MoE's), summed in layer order.
+`forward` returns the layers' aux losses (the MoE's), summed in layer
+order.
 
 Keys: layer i's mixer denses draw their noise seeds under
 ``fold_key(key, 2i)``, its FFN under ``fold_key(key, 2i + 1)``, lm_head
@@ -24,7 +33,7 @@ per-layer sweep of `benchmarks/bench_noise_tolerance._lm_eval_fns`) in one
 pass: the lanes fold into the batch, lane major, and every td dense is one
 td_vmm launch over the P lanes with the shared weight; attention runs on
 flash_attn over the folded batch.  The two differ only in the ``dense``
-callback they hand `_walk`.
+callback they hand `_walk`.  It runs the dense attention decoders only.
 """
 from __future__ import annotations
 
@@ -36,8 +45,12 @@ from torch.utils.checkpoint import (CheckpointPolicy,
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelCfg
 from repro_torch.kernels.td_vmm import ref as td_ref
-from repro_torch.models import attention, common, ffn
+from repro_torch.models import attention, common, ffn, mamba2, rwkv6
 from repro_torch.tdsim import td_linear
+
+
+MIXERS = ("attn", "shared_attn", "mamba2", "rwkv6")
+FFNS = ("swiglu", "moe", "rwkv_cm", "none")
 
 
 def _check_supported(cfg: ModelCfg) -> None:
@@ -45,26 +58,37 @@ def _check_supported(cfg: ModelCfg) -> None:
         raise ValueError(f"{cfg.name}: an enc-dec model runs through "
                          "models.encdec (model_api's 'encdec' entry), not "
                          "the decoder stack")
-    unported = []
     if cfg.family != "decoder":
-        unported.append(f"family {cfg.family!r}")
-    if any(cfg.mixer_at(i) != "attn" for i in range(cfg.n_layers)):
-        unported.append("non-attention mixers")
-    if cfg.rwkv is not None or cfg.ffn_pattern:
-        unported.append("FFNs other than SwiGLU and MoE")
-    if unported:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(unported)} not "
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} not "
                                   "yet ported (ROADMAP.md §1, step 13)")
+    for i in range(cfg.n_layers):
+        if cfg.mixer_at(i) not in MIXERS:
+            raise ValueError(f"{cfg.name}: mixer {cfg.mixer_at(i)!r}")
+        if _ffn_kind(cfg, i) not in FFNS:
+            raise ValueError(f"{cfg.name}: ffn {_ffn_kind(cfg, i)!r}")
 
 
-def _ffn_kind(cfg: ModelCfg) -> str:
-    return "moe" if cfg.moe is not None else "swiglu"
+def _ffn_kind(cfg: ModelCfg, layer: int) -> str:
+    if cfg.ffn_pattern is not None:
+        return cfg.ffn_pattern[layer]
+    if cfg.rwkv is not None:
+        return "rwkv_cm"
+    if cfg.moe is not None:
+        return "moe"
+    return "swiglu"
+
+
+def _has_shared(cfg: ModelCfg) -> bool:
+    return any(cfg.mixer_at(i) == "shared_attn" for i in range(cfg.n_layers))
 
 
 def init_params(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
                 device=None) -> dict:
-    """Seeded random parameters with the reference's distributions.  Each
-    tensor is drawn in float32 on ``device`` and stored in ``dtype``."""
+    """Seeded random parameters with the reference's distributions and
+    layout: every layer has ``ln1`` and ``ln2`` (a mixer-only layer's
+    ``ln2`` too), and a shared attention block lives once, under
+    ``shared_attn``, initialised under the top-level policy.  Each tensor
+    is drawn in float32 on ``device`` and stored in ``dtype``."""
     _check_supported(cfg)
     dev = device_mod.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -75,18 +99,30 @@ def init_params(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
         params["adapter"] = common.dense_init(
             gen, cfg.d_frontend or cfg.d_model, cfg.d_model, top,
             dtype=dtype, device=dev)
+    if _has_shared(cfg):
+        params["shared_attn"] = attention.attn_init(gen, cfg, top, dtype,
+                                                    dev)
     layers = []
     for i in range(cfg.n_layers):
         pol_i = common.pol_at(pol, i)
         lp = {"ln1": common.rmsnorm_init(cfg.d_model, dtype, dev),
-              "ln2": common.rmsnorm_init(cfg.d_model, dtype, dev),
-              "attn": attention.attn_init(gen, cfg, pol_i, dtype, dev)}
-        if _ffn_kind(cfg) == "moe":
-            lp["moe"] = ffn.moe_init(gen, cfg.d_model, cfg.moe, pol_i, dtype,
-                                     dev)
-        else:
+              "ln2": common.rmsnorm_init(cfg.d_model, dtype, dev)}
+        mix = cfg.mixer_at(i)
+        if mix == "attn":
+            lp["attn"] = attention.attn_init(gen, cfg, pol_i, dtype, dev)
+        elif mix == "mamba2":
+            lp["mamba"] = mamba2.mamba2_init(gen, cfg, pol_i, dtype, dev)
+        elif mix == "rwkv6":
+            lp["timemix"] = rwkv6.timemix_init(gen, cfg, pol_i, dtype, dev)
+        fk = _ffn_kind(cfg, i)
+        if fk == "swiglu":
             lp["mlp"] = ffn.swiglu_init(gen, cfg.d_model, cfg.d_ff, pol_i,
                                         dtype, dev)
+        elif fk == "moe":
+            lp["moe"] = ffn.moe_init(gen, cfg.d_model, cfg.moe, pol_i, dtype,
+                                     dev)
+        elif fk == "rwkv_cm":
+            lp["chanmix"] = rwkv6.chanmix_init(gen, cfg, pol_i, dtype, dev)
         layers.append(lp)
     params["layers"] = layers
     params["final_norm"] = common.rmsnorm_init(cfg.d_model, dtype, dev)
@@ -97,33 +133,56 @@ def init_params(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
     return params
 
 
-# a layer's denses by key path (2i + part, j): the mixer's wq, wk, wv, wo
-# (part 0), the SwiGLU FFN's wg, wi, wo (part 1)
+# a dense attention layer's denses by key path (2i + part, j): the mixer's
+# wq, wk, wv, wo (part 0), the SwiGLU FFN's wg, wi, wo (part 1)
 _DENSES = ((0, 4), (1, 3))
 
 
-def _layer_apply(lp: dict, x: torch.Tensor, cfg: ModelCfg, dense, i: int,
-                 positions: torch.Tensor, cache: dict | None, key,
-                 attn_pols=None, pol=None
+def _layer_apply(lp: dict, shared: dict | None, x: torch.Tensor,
+                 cfg: ModelCfg, dense, i: int, positions: torch.Tensor,
+                 cache: dict | None, key, attn_pols=None, pol=None
                  ) -> tuple[torch.Tensor, dict | None, dict]:
+    mixer = cfg.mixer_at(i)
+    # the shared block's denses run at the top-level policy: layer None
+    at = None if mixer == "shared_attn" else i
+
     def mix(p, h, j):
-        return dense(i, (2 * i, j), p, h)
+        return dense(at, (2 * i, j), p, h)
 
     def mlp(p, h, j):
         return dense(i, (2 * i + 1, j), p, h)
 
+    kmix = common.fold_key(key, 2 * i)
     h = common.rmsnorm(lp["ln1"], x, cfg.rms_eps)
-    y, new_cache = attention.attention(lp["attn"], h, cfg, None, positions,
-                                       cache=cache,
-                                       key=common.fold_key(key, 2 * i),
-                                       attn_pols=attn_pols, dense=mix)
+    if mixer in ("attn", "shared_attn"):
+        y, new_cache = attention.attention(
+            lp["attn"] if mixer == "attn" else shared, h, cfg, None,
+            positions, cache=cache, key=kmix, attn_pols=attn_pols,
+            dense=mix)
+    elif mixer == "mamba2":
+        y, new_cache = mamba2.mamba2(lp["mamba"], h, cfg, None, state=cache,
+                                     dense=mix)
+    else:
+        y, new_cache = rwkv6.timemix(lp["timemix"], h, cfg, None,
+                                     state=cache, dense=mix)
     x = x + y
+
+    fk = _ffn_kind(cfg, i)
+    if fk == "none":
+        return x, new_cache, {}
     h = common.rmsnorm(lp["ln2"], x, cfg.rms_eps)
-    if "moe" in lp:
+    if fk == "moe":
         y, aux = ffn.moe_ffn(lp["moe"], h, cfg.moe, common.pol_at(pol, i),
                              common.fold_key(key, 2 * i + 1))
         return x + y, new_cache, aux
-    return x + ffn.swiglu(lp["mlp"], h, None, dense=mlp), new_cache, {}
+    if fk == "swiglu":
+        return x + ffn.swiglu(lp["mlp"], h, None, dense=mlp), new_cache, {}
+    cm_state = cache if cache is not None and "shift_c" in cache else None
+    y, cm_new = rwkv6.chanmix(lp["chanmix"], h, cfg, None, state=cm_state,
+                              dense=mlp)
+    if new_cache is not None and cm_new is not None:
+        new_cache = {**new_cache, **cm_new}
+    return x + y, new_cache, {}
 
 
 # the matmuls without batch dims, in any dtype
@@ -151,8 +210,9 @@ def _walk(params: dict, x: torch.Tensor, cfg: ModelCfg, dense,
           ) -> tuple[torch.Tensor, list, dict]:
     """The decoder's layers in order (``layers``: a range of them, all by
     default), shared by `forward` and `forward_lanes`.  ``dense(i, fold,
-    p, h)`` computes a dense of layer i with params p on h; ``fold`` is
-    the dense's key path from the forward's key, ``(2i, j)`` for the
+    p, h)`` computes a dense of layer i with params p on h, i None for a
+    dense at the top-level policy (the shared attention block's); ``fold``
+    is the dense's key path from the forward's key, ``(2i, j)`` for the
     mixer's j-th dense and ``(2i + 1, j)`` for the FFN's.  ``key`` seeds
     TD attention (``fold_key(key, 2i, 4)``) and the MoE's experts, which
     run at ``pol_at(pol, i)`` (`ffn.moe_ffn`).  ``remat``: "full"
@@ -164,8 +224,8 @@ def _walk(params: dict, x: torch.Tensor, cfg: ModelCfg, dense,
     aux_all: dict = {}
     for i in (range(cfg.n_layers) if layers is None else layers):
         cache = caches[i] if caches is not None else None
-        args = (params["layers"][i], x, cfg, dense, i, positions, cache, key,
-                attn_pols, pol)
+        args = (params["layers"][i], params.get("shared_attn"), x, cfg,
+                dense, i, positions, cache, key, attn_pols, pol)
         if remat == "none":
             x, new_caches[i], aux = _layer_apply(*args)
         else:
@@ -180,10 +240,14 @@ def _walk(params: dict, x: torch.Tensor, cfg: ModelCfg, dense,
 
 
 def _policy_dense(pol, key):
-    """`_walk`'s ``dense`` for one forward: layer i at ``pol_at(pol, i)``,
-    its noise seeded by ``fold_key(key, *fold)``."""
+    """`_walk`'s ``dense`` for one forward: layer i at ``pol_at(pol, i)``
+    (i None: ``pol_top(pol)``), its noise seeded by ``fold_key(key,
+    *fold)``."""
+    top = common.pol_top(pol)
+
     def dense(i, fold, p, h):
-        return td_linear.linear(p, h, common.pol_at(pol, i),
+        return td_linear.linear(p, h, top if i is None else
+                                common.pol_at(pol, i),
                                 common.fold_key(key, *fold))
     return dense
 
@@ -261,10 +325,12 @@ def forward_lanes(params: dict, batch: dict, cfg: ModelCfg, base_pol,
     noisy layer costs one copy of ``sigma`` to the host a call, and the
     lanes' seeds of every dense one copy to the device."""
     _check_supported(cfg)
-    if _ffn_kind(cfg) != "swiglu":
+    if any(cfg.mixer_at(i) != "attn" or _ffn_kind(cfg, i) != "swiglu"
+           for i in range(cfg.n_layers)):
         raise NotImplementedError(
-            f"{cfg.name}: forward_lanes of an MoE decoder is not yet ported "
-            "(ROADMAP.md §1, item 7)")
+            f"{cfg.name}: forward_lanes runs dense attention decoders only; "
+            "the MoE, mamba2, rwkv6 and shared-attention families are not "
+            "yet ported (ROADMAP.md §1, item 7)")
     p_lanes, n_layers = len(keys), cfg.n_layers
     if tuple(sigma.shape) != (p_lanes, n_layers):
         raise ValueError(f"sigma {tuple(sigma.shape)} for {p_lanes} keys "
@@ -305,9 +371,20 @@ def forward_lanes(params: dict, batch: dict, cfg: ModelCfg, base_pol,
 
 def init_caches(b: int, s_cache: int, cfg: ModelCfg, dtype=torch.bfloat16,
                 device=None, per_row_idx: bool = False) -> list:
-    """One KV cache per layer; ``per_row_idx`` builds the serving engine's
-    ragged-slot caches (one fill index per batch row)."""
+    """One cache per layer: a KV cache (``dtype``) for an attention or
+    shared-attention layer, a float32 decode state for a mamba2 or rwkv6
+    layer, whatever ``dtype``.  ``per_row_idx`` builds the serving engine's
+    ragged-slot KV caches (one fill index per batch row)."""
     _check_supported(cfg)
     dev = device_mod.resolve(device)
-    return [attention.init_cache(b, s_cache, cfg, dtype, dev, per_row_idx)
-            for _ in range(cfg.n_layers)]
+    caches = []
+    for i in range(cfg.n_layers):
+        mixer = cfg.mixer_at(i)
+        if mixer in ("attn", "shared_attn"):
+            caches.append(attention.init_cache(b, s_cache, cfg, dtype, dev,
+                                               per_row_idx))
+        elif mixer == "mamba2":
+            caches.append(mamba2.init_state(b, cfg, torch.float32, dev))
+        else:
+            caches.append(rwkv6.init_state(b, cfg, torch.float32, dev))
+    return caches

@@ -70,25 +70,28 @@ def serve_both(name: str, batch: int, prompt_len: int, gen: int,
                monkeypatch, seed: int = 0):
     """The port's `serve.run` and the reference's prefill and serve steps
     on the same parameters, prompts and frontend embeddings (bf16, as
-    `serve.run` feeds them), the reference's caches sized as the port's:
-    ``(port tokens, reference tokens, frontend positions)``."""
+    `serve.run` feeds them; none without a frontend), the reference's
+    caches sized as the port's: ``(port tokens, reference tokens,
+    frontend positions)``."""
     ja, ta = archs(name)
     use_reference_init(ja, monkeypatch)
     cfg = ja.model
     ids = tserve.run(ta, batch, prompt_len, gen, seed=seed, device="cpu")
-    n_front = max(8, prompt_len // 2)
+    n_front = (max(8, prompt_len // 2)
+               if cfg.frontend is not None or cfg.family == "encdec" else 0)
     s_cache = prompt_len + gen + (n_front if cfg.family == "decoder" else 0)
     shape = JShape("serve", s_cache, batch, "decode")
     pre = jax.jit(jsteps.build_prefill_step(ja, shape))
     srv = jax.jit(jsteps.build_serve_step(ja, shape))
     jp = jget_api(cfg)["init"](jax.random.key(seed), cfg,
                                jcommon.resolve_arch_policy(ja))
-    emb = tserve.frontend_embeds(seed, batch, n_front,
-                                 cfg.d_frontend or cfg.d_model)
-    logits, state = pre(jp, {
-        "tokens": jnp.asarray(tserve.prompts(seed, batch, prompt_len,
-                                             cfg.vocab)),
-        "embeds": jnp.asarray(emb).astype(jnp.bfloat16)})
+    batch_in = {"tokens": jnp.asarray(tserve.prompts(seed, batch,
+                                                     prompt_len, cfg.vocab))}
+    if n_front:
+        emb = tserve.frontend_embeds(seed, batch, n_front,
+                                     cfg.d_frontend or cfg.d_model)
+        batch_in["embeds"] = jnp.asarray(emb).astype(jnp.bfloat16)
+    logits, state = pre(jp, batch_in)
     tok = jnp.argmax(logits[:, -1], -1).astype(jnp.int32)[:, None]
     out = [np.asarray(tok)]
     for _ in range(gen - 1):
