@@ -13,8 +13,14 @@
    at tt, ff and ss on the card and on this host's CPU, integer decisions
    and winners equal (a float32 tie printed and counted), floats within
    rtol 1e-4, the sweep timed and its launches profiled, the explorer's
-   memo hits timed; and `solve_td_policy` on the card at the eight rows
-   of `POLICY_ROWS` (the reference's solutions);
+   memo hits timed; the explorer's refinement, disk store and corner
+   fan-out (`phase_explorer`: `benchmarks/bench_explorer.py`'s parity
+   case, refine bit-identical to the dense oracle on the card and equal
+   to the CPU's; its resolution case, >= 1e7 effective points from <=
+   2e5 evaluated; a disk round trip across two services under build/;
+   the fan-out against the serial loop, bit-identical, both walls); and
+   `solve_td_policy` on the card at the eight rows of `POLICY_ROWS` (the
+   reference's solutions);
 3. runs the port's smoke model on the card and on the CPU (plain versions
    of the kernels): serving (tokens and logits), the continuous-batching
    engine on ragged requests at capacities 3 and 9 (tokens, steps and
@@ -112,7 +118,13 @@
    (td_vmm at mamba2's in_proj, N 8384, and both lm_heads, N 32000 and
    65536, bit for bit with noise; flash_attn and decode_gqa at D 64, g
    1, zamba2 only, timed against SDPA; lsq_quant on the new weights);
-   flash_attn and decode_gqa must show no launch on rwkv6's paths;
+   flash_attn and decode_gqa must show no launch on rwkv6's paths; then
+   `phase_dbrx`: dbrx-132b at its published widths (6144, 48/8 heads of
+   128, 16 experts top-4 of 10752, vocab 100352) cut to 2 of 40 layers,
+   bf16, td, served (4 x 128, 16 new tokens; 0 host syncs a step), its
+   smoke model on the card against the CPU, td_vmm's 16 expert lanes at
+   the prefill's and decode's capacities bit for bit with noise,
+   flash_attn (wgmma, g 6) and decode_gqa at its shapes against SDPA;
    then runs the paper's noise loop on full-width ResNet20-CIFAR
    (`phase_noise_loop`, 22 sites, n_chain 576): 150 quant-mode SGD steps
    on 512 synthetic images, the per-site batched sigma_max search (286
@@ -145,7 +157,16 @@
    per-layer policy solve and its file read back by ``--td-per-layer``;
    then holds the sweep's kernels to their plain versions at its shapes
    (td_vmm's 13 lanes of M 256 over a shared w at every dense's K and N,
-   bit for bit; flash_attn's f32 path at batch 8, 24 and 104);
+   bit for bit; flash_attn's f32 path at batch 8, 24 and 104); then the
+   same recipe on the other families (`phase_lm_sweep_families`:
+   granite-moe-1b-a400m cut to 4 layers, zamba2-1.2b to layers 0-5,
+   rwkv6-1.6b to 4; lanes = single forwards, the search's td_vmm lane
+   launches counted, the layer-0 scalar search, the policy file), the
+   MoE's P x E expert lanes (13 probes x 32 experts in one call) against
+   13 calls of 32 lanes and the plain version, bit for bit and timed,
+   each model's td_vmm lanes at its denses and flash_attn f32 at its
+   attention sites against their plain versions, and lsq_quant at the
+   QAT's f32 weights and activations;
    then fault tolerance and drift adaptation, at the smoke traffic of the
    reference's benches on full-width models: `phase_drift_traces`
    (`benchmarks/bench_drift_traces.py`: qwen3-8b cut to 4 layers
@@ -1879,8 +1900,7 @@ def family_arch(name: str, mode: str | None, n_layers: int | None = None):
     from repro_torch.launch import td_cli
     arch = cfgs.get(name)
     if n_layers is not None:
-        arch = arch.replace(model=dataclasses.replace(
-            arch.model, n_layers=n_layers))
+        arch = arch.replace(model=cut_layers(arch.model, n_layers))
     return td_cli.apply_td_args(arch, mode)
 
 
@@ -2657,67 +2677,51 @@ def phase_td_attention(launches: dict, rows: list):
 LM_SWEEP = dict(layers=4, seq_len=32, global_batch=8, steps=60, lr=0.15,
                 sigmas=(0.25, 0.5, 1.0, 2.0, 4.0, 8.0), n_repeats=2,
                 chunk=13, seed=0, eval_step=999)
-LM_POLICIES = ROOT / "build" / "noise_tolerance" / \
-    "per_layer_policies_granite-8b.json"
 
 
-def phase_lm_noise_sweep(launches: dict):
-    """The LM sweep's path, counted: QAT, the per-layer batched search
-    (`transformer.forward_lanes`: a chunk's 13 probes as lanes, 7 td_vmm
-    lane launches a layer a chunk), the site-0 scalar search, the network
-    sweep, the policy solve and its file; lanes = single forwards bit for
-    bit."""
-    import numpy as np
+def _on(hb: dict, dev) -> dict:
+    """A synthetic batch's tokens and labels on ``dev``."""
     import torch
-    import repro_torch.configs as cfgs
-    from repro_torch import prng
-    from repro_torch.configs.base import TDExecCfg
-    from repro_torch.core import noise_tolerance as nt
-    from repro_torch.data.synthetic import DataCfg, SyntheticStream
-    from repro_torch.launch import td_cli
-    from repro_torch.models import get_api
-    from repro_torch.models import transformer as tr
-    from repro_torch.optim.adamw import tree_leaves_with_path
-    from repro_torch.tdsim.policy import (NetworkPolicy, TDPolicy,
-                                          quant_policy,
-                                          solve_network_policies)
+    return {n: torch.from_numpy(hb[n]).to(dev) for n in ("tokens", "labels")}
 
-    conf, dev = LM_SWEEP, "cuda"
-    cfg = dataclasses.replace(cfgs.get("granite-8b").model,
-                              n_layers=conf["layers"])
-    if (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab) != \
-            (4096, 32, 8, 14336, 49152):
-        fail(f"granite-8b widths {cfg}")
-    n_l = cfg.n_layers
+
+def _lm_qat(tag: str, what: str, cfg, conf: dict, key, dev):
+    """The LM sweep's brief QAT (`benchmarks/bench_noise_tolerance.
+    _lm_eval_fns`): the seeded quant-4/4 init, ``conf["steps"]`` plain SGD
+    steps at ``conf["lr"]`` on the synthetic stream's batches.  Prints the
+    losses, step ms and peak memory; fails on a non-finite loss.  Returns
+    (params, stream)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.data.synthetic import DataCfg, SyntheticStream
+    from repro_torch.models import get_api
+    from repro_torch.models.transformer import _ffn_kind
+    from repro_torch.optim.adamw import tree_leaves_with_path
+    from repro_torch.tdsim.policy import quant_policy
+
     api = get_api(cfg)
     pol_q = quant_policy(4, 4)
-    key = prng.key(conf["seed"])
-    sigmas, reps, chunk = conf["sigmas"], conf["n_repeats"], conf["chunk"]
-    per = len(sigmas) * reps + 1
-    mods = kernel_modules()
-    tv = mods["td_vmm"]
-    for m in mods.values():
-        m.launches = 0
-    t_phase = time.monotonic()
-
-    # 1. brief QAT, quant 4/4, plain SGD
     params = api["init"](conf["seed"], cfg, pol_q, device=dev)
     stream = SyntheticStream(DataCfg(vocab=cfg.vocab, seq_len=conf["seq_len"],
                                      global_batch=conf["global_batch"]))
-
-    def on_card(hb):
-        return {n: torch.from_numpy(hb[n]).to(dev) for n in ("tokens",
-                                                             "labels")}
-
-    leaves = [t for _, t in tree_leaves_with_path(params)]
+    # the leaves the loss never reads: ln2 of a layer with no FFN (zamba2's
+    # mixer-only layers); every other leaf must get a gradient
+    unread = tuple(f"layers/{i}/ln2/" for i in range(cfg.n_layers)
+                   if _ffn_kind(cfg, i) == "none")
+    named = [(n, t) for n, t in tree_leaves_with_path(params)
+             if not n.startswith(unread)]
+    leaves = [t for _, t in named]
     for t in leaves:
         t.requires_grad_(True)
     losses, step_ms = [], []
     for i in range(conf["steps"]):
         t0 = time.perf_counter()
-        loss, _ = api["train_loss"](params, on_card(stream.batch(i)), cfg,
+        loss, _ = api["train_loss"](params, _on(stream.batch(i), dev), cfg,
                                     pol_q, prng.fold_in(key, i))
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        cut = [n for (n, _), g in zip(named, grads) if g is None]
+        if cut:
+            fail(f"{tag} QAT: no gradient reaches {cut}")
         with torch.no_grad():
             for t, g in zip(leaves, grads):
                 t -= conf["lr"] * g
@@ -2725,22 +2729,193 @@ def phase_lm_noise_sweep(launches: dict):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     for t in leaves:
         t.requires_grad_(False)
-    del grads
-    print(f"[lm_noise_sweep] granite-8b, {n_l} of 36 layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab}, f32: quant 4/4 QAT, "
-          f"{conf['steps']} SGD steps at lr {conf['lr']} on batch "
-          f"{conf['global_batch']} x {conf['seq_len']}: loss "
-          f"{losses[0]:.4f} -> {losses[-1]:.4f} (min {min(losses):.4f}), "
-          f"step ms median {statistics.median(step_ms):.2f} (first "
-          f"{step_ms[0]:.1f}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"[lm_noise_sweep] losses {[round(x, 4) for x in losses]}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{tag}] {what}, d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"f32: quant 4/4 QAT, {conf['steps']} SGD steps at lr "
+          f"{conf['lr']} on batch {conf['global_batch']} x "
+          f"{conf['seq_len']}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(min {min(losses):.4f}), step ms median "
+          f"{statistics.median(step_ms):.2f} (first {step_ms[0]:.1f}); peak "
+          f"memory {peak:.2f} GiB")
+    print(f"[{tag}] losses {[round(x, 4) for x in losses]}")
     if not all(math.isfinite(x) for x in losses):
-        fail(f"lm noise sweep QAT: losses {losses}")
+        fail(f"{tag} QAT: losses {losses}")
+    return params, stream
 
-    # 2. the eval: next-token top-1 on batch(999), P probes as lanes
-    batch = on_card(stream.batch(conf["eval_step"]))
+
+def phase_lm_noise_sweep(launches: dict):
+    """The LM sweep's path on granite-8b at its published widths, cut to
+    LM_SWEEP["layers"] of 36 layers (`_lm_sweep_family`: QAT, lanes =
+    single forwards bit for bit, the per-layer batched search with 7 td_vmm
+    lane launches a layer a chunk, the site-0 scalar search, the network
+    sweep, the policy solve and its file), then its kernels at its shapes
+    (`_lm_sweep_kernel_checks`)."""
+    import torch
+    import repro_torch.configs as cfgs
+    cfg = cfgs.get("granite-8b").model
+    if (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab) != \
+            (4096, 32, 8, 14336, 49152):
+        fail(f"granite-8b widths {cfg}")
+    cfg, solved0 = _lm_sweep_family("lm_noise_sweep", "granite-8b",
+                                    LM_SWEEP["layers"], launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    d, f, kv_d = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.hd
+    _lm_sweep_kernel_checks("lm_noise_sweep", cfg, kernel_modules()["td_vmm"],
+                            solved0, [("attn.wq/wo", d, d),
+                                      ("attn.wk/wv", d, kv_d),
+                                      ("mlp.wi/wg", d, f), ("mlp.wo", f, d)],
+                            attn=True)
+
+
+# flash_attn's f32 path (CUDA cores) against its plain version: the softmax
+# of at most 32 keys summed in another order, about 100 f32 ulps at |o| ~ 1
+ATOL_F32 = 1e-5
+
+
+def _lm_sweep_kernel_checks(tag: str, cfg, tv, solved, denses: list,
+                            attn: bool) -> None:
+    """The LM sweep's kernels against their plain versions at its shapes
+    (these launches come after the path's counts were read): td_vmm's
+    lanes at a chunk's 13 lanes of M 256 over a shared w, n_chain d_model,
+    at each of ``denses`` ((label, K, N)), at sigma 0, at the sweep's
+    per-lane sigmas and at layer 0's ``solved`` policy, bit for bit
+    against the plain version and single launches; with ``attn``
+    flash_attn in f32 at the single forward's batch 8, the 3-lane check's
+    24 and a chunk's 104, Sq 32, the model's heads, causal, within
+    ATOL_F32."""
+    import torch
+    from repro_torch.kernels.flash_attn import flash_attn as fa
+    conf, chunk = LM_SWEEP, LM_SWEEP["chunk"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    m = conf["global_batch"] * conf["seq_len"]
+    kw = dict(bits_a=4, bits_w=4, n_chain=cfg.d_model)
+    sweep = [0.0] + [s for s in conf["sigmas"]
+                     for _ in range(conf["n_repeats"])]
+    variants = {
+        "sigma 0": [[0.0, 1.0]] * chunk,
+        "the sweep's sigmas": [[s, 1.0] for s in sweep[:chunk]],
+        f"solved (sigma {solved.sigma_chain:.4f}, q {solved.tdc_q})":
+            [[solved.sigma_chain, float(solved.tdc_q)]] * chunk}
+    seed = torch.randint(0, 2 ** 32, (chunk,), generator=gen,
+                         dtype=torch.int64, device="cuda")
+    for label, k, n in denses:
+        x = _codes(gen, (chunk, m, k), kw["bits_a"])
+        w = _codes(gen, (k, n), kw["bits_w"])
+        for which, rows in variants.items():
+            par = torch.tensor(rows, dtype=torch.float32, device="cuda")
+            _lane_check(tv, f"{label}, {which}", x, w, par, seed, kw,
+                        tag=tag)
+        del x, w
+    torch.cuda.empty_cache()
+    for b in (conf["global_batch"], 3 * conf["global_batch"],
+              chunk * conf["global_batch"]) if attn else ():
+        sq = conf["seq_len"]
+        q = torch.randn((b, sq, cfg.n_heads, cfg.hd), generator=gen,
+                        device="cuda")
+        k, v = (torch.randn((b, sq, cfg.n_kv_heads, cfg.hd), generator=gen,
+                            device="cuda") for _ in range(2))
+        args = (q, k, v, _i32([sq] * b), _i32([0]))
+        err = float((fa.flash_attn(*args, causal=True)
+                     - fa.flash_attn_plain(*args, causal=True)).abs().max())
+        print(f"[{tag}] flash_attn f32 B={b} Sq={sq} Hq={cfg.n_heads} "
+              f"Hkv={cfg.n_kv_heads} D={cfg.hd} causal: max |kernel - "
+              f"plain| {err:.3g} (tolerance {ATOL_F32:g})")
+        if not err <= ATOL_F32:
+            fail(f"flash_attn f32 disagrees with its plain version ({tag}, "
+                 f"B {b})")
+        del q, k, v, args
+
+
+# The LM sweep on every decoder family: the recipe of LM_SWEEP on each
+# model at its published widths, cut in depth (zamba2 keeps layers 0-5, so
+# that its first shared-attention site, 5, is inside the cut).
+SWEEP_FAMILIES = {"granite-moe": ("granite-moe-1b-a400m", 4),
+                  "zamba2": ("zamba2-1.2b", 6),
+                  "rwkv6": ("rwkv6-1.6b", 4)}
+
+
+def cut_layers(cfg, n: int):
+    """``cfg``'s first ``n`` layers, its layer and FFN patterns cut with
+    them."""
+    return dataclasses.replace(
+        cfg, n_layers=n,
+        layer_pattern=(None if cfg.layer_pattern is None
+                       else cfg.layer_pattern[:n]),
+        ffn_pattern=None if cfg.ffn_pattern is None else cfg.ffn_pattern[:n])
+
+
+def sweep_expected(cfg, steps: int, lane_passes: list, singles: int
+                   ) -> dict:
+    """Launches of an LM sweep's path on ``cfg``: quant-4/4 QAT (``steps``
+    steps), then passes at td 4/4 under a quant-4/4 top: lane passes
+    (``lane_passes``: (lanes, first noisy layer) each) and ``singles``
+    single forwards.  td_vmm runs once a td dense a pass: 4 at an
+    attention site, 2 in a mamba2 mixer, 5 in an rwkv6 time mix, 3 in a
+    SwiGLU, an RWKV channel mix or an MoE (a lane launch each over its
+    experts, P x E lanes in a lane pass); the shared block and lm_head, at
+    the quant top, none.  flash_attn runs once an attention or shared site
+    a QAT step and a pass.  lsq_quant runs twice a quant matmul (x and w):
+    every dense and lm_head of a QAT step; in a pass lm_head once a lane,
+    and the shared block's 4 denses a site once a lane from the first
+    noisy layer on (lane by lane), once before it (the clean prefix)."""
+    from repro_torch.models.transformer import _ffn_kind
+    mix = {"attn": 4, "shared_attn": 0, "mamba2": 2, "rwkv6": 5}
+    ffn = {"swiglu": 3, "moe": 3, "rwkv_cm": 3, "none": 0}
+    layers = range(cfg.n_layers)
+    td = sum(mix[cfg.mixer_at(i)] + ffn[_ffn_kind(cfg, i)] for i in layers)
+    n_attn = sum(cfg.mixer_at(i) in ("attn", "shared_attn") for i in layers)
+    shared = [i for i in layers if cfg.mixer_at(i) == "shared_attn"]
+    passes = len(lane_passes) + singles
+    quant_pass = sum(p + 4 * sum(p if i >= first else 1 for i in shared)
+                     for p, first in lane_passes)
+    return {"td_vmm": td * passes,
+            "flash_attn": n_attn * (steps + passes),
+            "decode_gqa": 0,
+            "lsq_quant": 2 * (td + 4 * len(shared) + 1) * steps
+            + 2 * (quant_pass + singles * (1 + 4 * len(shared)))}
+
+
+def _lm_sweep_family(tag: str, name: str, n_keep: int, launches: dict
+                     ) -> tuple:
+    """LM_SWEEP's recipe on ``name`` at its published widths cut to
+    ``n_keep`` layers, f32: QAT; 3 lanes against 3 single forwards bit
+    for bit, noise on; the per-layer batched search (a chunk's 13 probes
+    as lanes), its td_vmm launches counted; the scalar search of layer 0
+    against it; the network sweep; the policies solved, their file
+    written under build/ and read back.  The path's launches are checked
+    (`sweep_expected`).  Returns the model's config and solved layer-0
+    policy."""
+    import numpy as np
+    import torch
+    import repro_torch.configs as cfgs
+    from repro_torch import prng
+    from repro_torch.configs.base import TDExecCfg
+    from repro_torch.core import noise_tolerance as nt
+    from repro_torch.launch import td_cli
+    from repro_torch.models import transformer as tr
+    from repro_torch.tdsim.policy import (NetworkPolicy, TDPolicy,
+                                          quant_policy,
+                                          solve_network_policies)
+
+    conf, dev = LM_SWEEP, "cuda"
+    full = cfgs.get(name).model
+    cfg = cut_layers(full, n_keep)
+    n_l = cfg.n_layers
+    pol_q = quant_policy(4, 4)
+    key = prng.key(conf["seed"])
+    sigmas, reps, chunk = conf["sigmas"], conf["n_repeats"], conf["chunk"]
+    per = len(sigmas) * reps + 1
+    mods = kernel_modules()
+    tv = mods["td_vmm"]
+    _counts_reset(mods)
+    t_phase = time.monotonic()
+    pattern = "" if cfg.layer_pattern is None else \
+        f" ({list(cfg.layer_pattern)})"
+    params, stream = _lm_qat(tag, f"{name}, {n_l} of {full.n_layers} "
+                             f"layers{pattern}", cfg, conf, key, dev)
+    batch = _on(stream.batch(conf["eval_step"]), dev)
     base = TDPolicy(mode="td", bits_a=4, bits_w=4, n_chain=cfg.d_model,
                     sigma_chain=0.0, tdc_q=1)
 
@@ -2758,28 +2933,25 @@ def phase_lm_noise_sweep(launches: dict):
         logits = single_logits([s] + [0.0] * (n_l - 1), k)
         return float((logits.argmax(-1) == batch["labels"]).float().mean())
 
-    # 3 lanes against 3 single forwards (layer 0 clean in every lane: the
-    # shared clean prefix, then the lanes)
-    sv3 = torch.tensor([[0.0, 0.5, 2.0, 0.0], [0.0] * 4,
-                        [0.0, 4.0, 0.25, 8.0]], device=dev)[:, :n_l]
+    # 3 lanes against 3 single forwards (layer 0 clean in every lane)
+    rows3 = [[0.0, 0.5, 2.0], [0.0, 0.0, 0.0], [0.0, 4.0, 0.25]]
+    sv3 = torch.tensor([[r[i % 3] if i else 0.0 for i in range(n_l)]
+                        for r in rows3], device=dev)
     keys3 = prng.split(prng.fold_in(key, 77), 3)
     lanes3 = tr.forward_lanes(params, batch, cfg, base, sv3, keys3, pol_q)
     same3 = [_bits_equal(lanes3[p], single_logits(sv3[p].tolist(),
                                                   keys3[p]))
              for p in range(3)]
-    print(f"[lm_noise_sweep] forward_lanes, 3 lanes at sigma "
-          f"{sv3.tolist()}: each lane equal to its single forward bit for "
-          f"bit {same3}")
-    if not all(same3):
-        fail("forward_lanes differs from the single forwards")
     moved = float((lanes3[0] - lanes3[1]).abs().max())
-    print(f"[lm_noise_sweep] lane 0 (noisy) against lane 1 (clean): max "
-          f"|logit diff| {moved:.6g}")
-    if not moved > 0:
-        fail("forward_lanes: a noisy lane's logits equal the clean lane's")
+    print(f"[{tag}] forward_lanes, 3 lanes at sigma {sv3.tolist()}: each "
+          f"lane equal to its single forward bit for bit {same3}; lane 0 "
+          f"(noisy) against lane 1 (clean): max |logit diff| {moved:.6g}")
+    if not all(same3) or not moved > 0:
+        fail(f"{tag}: forward_lanes differs from the single forwards, or "
+             "its noise does not act")
     del lanes3
 
-    # 3. the per-layer batched search
+    # the per-layer batched search, its td_vmm launches counted
     layer_eval(torch.ones(chunk, n_l, device=dev), prng.split(key, chunk))
     torch.cuda.synchronize()
     n0 = tv.launches
@@ -2792,21 +2964,22 @@ def phase_lm_noise_sweep(launches: dict):
     t_batched = time.perf_counter() - t0
     search_launches = tv.launches - n0
     n_chunks = -(-n_l * per // chunk)
-    print(f"[lm_noise_sweep] per-layer search: {res.n_evals} probes in "
-          f"{n_chunks} chunks of {chunk}, {n_l} layers x sigmas "
-          f"{list(sigmas)} x {reps} repeats (+ clean): wall "
-          f"{t_batched:.3f} s, td_vmm launches {search_launches}, peak "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"[lm_noise_sweep] acc_clean per layer {res.acc_clean.tolist()}")
-    for i in range(n_l):
-        print(f"[lm_noise_sweep] sigma_max layer{i}: {res.sigma_max[i]:.4f} "
-              f"(rel_drop {np.round(res.rel_drop[i], 4).tolist()})")
-    if search_launches != 7 * n_l * n_chunks or \
+    if per != chunk:
+        fail(f"{tag}: a chunk of {chunk} probes holds {per} a layer")
+    search = [(chunk, i) for i in range(n_l)]       # chunk i: layer i
+    want_search = sweep_expected(cfg, 0, search, 0)["td_vmm"]
+    print(f"[{tag}] per-layer search: {res.n_evals} probes in {n_chunks} "
+          f"chunks of {chunk}: wall {t_batched:.3f} s, td_vmm lane "
+          f"launches {search_launches} (expected {want_search}), peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"acc_clean per layer {res.acc_clean.tolist()}, sigma_max "
+          f"{np.round(res.sigma_max, 4).tolist()}")
+    if search_launches != want_search or \
             not np.isfinite(res.sigma_max).all():
-        fail(f"per-layer search: {search_launches} td_vmm launches, "
-             f"sigma_max {res.sigma_max}")
+        fail(f"{tag}: per-layer search with {search_launches} td_vmm "
+             f"launches, sigma_max {res.sigma_max}")
 
-    # 4. the scalar search of layer 0: the batched search's accuracies
+    # the scalar search of layer 0 against the batched one
     t0 = time.perf_counter()
     res0 = nt.find_sigma_max(scalar_layer0, sigmas, prng.fold_in(key, 0),
                              n_repeats=reps)
@@ -2814,36 +2987,25 @@ def phase_lm_noise_sweep(launches: dict):
     equal0 = bool(np.array_equal(res0.rel_drop, res.rel_drop[0])
                   and res0.acc_clean == res.acc_clean[0]
                   and res0.sigma_max == res.sigma_max[0])
-    print(f"[lm_noise_sweep] layer 0 scalar: sigma_max {res0.sigma_max:.4f} "
-          f"against batched {res.sigma_max[0]:.4f}, accuracies equal "
-          f"{equal0}; wall {t_scalar:.3f} s for {per} evals, x {n_l} layers "
-          f"= {t_scalar * n_l:.3f} s against batched {t_batched:.3f} s")
+    print(f"[{tag}] layer 0 scalar: sigma_max {res0.sigma_max:.4f} against "
+          f"batched {res.sigma_max[0]:.4f}, accuracies equal {equal0}; wall "
+          f"{t_scalar:.3f} s for {per} evals, x {n_l} layers = "
+          f"{t_scalar * n_l:.3f} s against batched {t_batched:.3f} s")
     if not equal0:
-        fail("layer 0: the scalar search differs from the batched search")
+        fail(f"{tag} layer 0: the scalar search differs from the batched")
 
-    # 5. the network sweep: one sigma at every layer
-    t0 = time.perf_counter()
+    # the network sweep, the policies, their file read back
     net = nt.find_sigma_max_batched(
         lambda sv, keys: layer_eval(sv.expand(-1, n_l), keys), sigmas, key,
         n_layers=1, n_repeats=reps, chunk_size=chunk, device=dev).layer(0)
-    print(f"[lm_noise_sweep] network sweep: acc_clean {net.acc_clean:.4f}, "
-          f"rel_drop " + ", ".join(f"{s:g}: {d:.4f}" for s, d in
-                                   zip(net.sigmas, net.rel_drop))
-          + f"; sigma_max {net.sigma_max:.4f}; wall "
-          f"{time.perf_counter() - t0:.3f} s")
-
-    # 6. the per-layer policies (Fig. 11), their file, read back
     solved = solve_network_policies(res.sigma_max, bits_a=4, bits_w=4,
                                     n_chain=base.n_chain, device=dev)
-    for i, (sm, pol) in enumerate(zip(res.sigma_max, solved.layers)):
-        print(f"[lm_noise_sweep] policy layer{i}: sigma_max {sm:.4f} -> R "
-              f"{pol.redundancy}, q {pol.tdc_q}, sigma_chain "
-              f"{pol.sigma_chain:.6f}")
-    nt.write_policies(LM_POLICIES, "granite-8b",
-                      [f"layer{i}" for i in range(n_l)], res.sigma_max,
-                      solved)
+    path = ROOT / "build" / "noise_tolerance" / \
+        f"per_layer_policies_{name}.json"
+    nt.write_policies(path, name, [f"layer{i}" for i in range(n_l)],
+                      res.sigma_max, solved)
     back = td_cli.parse_td_per_layer(
-        f"@{LM_POLICIES}", TDExecCfg(mode="td", n_chain=cfg.d_model), n_l)
+        f"@{path}", TDExecCfg(mode="td", n_chain=cfg.d_model), n_l)
     read_ok = [(c.sigma_max, c.n_chain, c.bits_a, c.bits_w) for c in back] \
         == [(float(s), p.n_chain, p.bits_a, p.bits_w)
             for s, p in zip(res.sigma_max, solved.layers)]
@@ -2852,88 +3014,466 @@ def phase_lm_noise_sweep(launches: dict):
             layers=solved.layers, top=pol_q), key=prng.fold_in(key, 4242))[0]
     acc_solved = float((logits.argmax(-1) == batch["labels"]).float().mean())
     torch.cuda.synchronize()
-    print(f"[lm_noise_sweep] {LM_POLICIES.relative_to(ROOT)} read back "
-          f"through parse_td_per_layer {read_ok}; accuracy at the solved "
-          f"policies {acc_solved:.4f} (clean {net.acc_clean:.4f}); the "
-          f"phase's wall {time.monotonic() - t_phase:.1f} s")
+    print(f"[{tag}] network sweep: sigma_max {net.sigma_max:.4f} (acc_clean "
+          f"{net.acc_clean:.4f}); policies R "
+          f"{[p.redundancy for p in solved.layers]}, q "
+          f"{[p.tdc_q for p in solved.layers]}; {path.relative_to(ROOT)} "
+          f"read back {read_ok}; accuracy at the solved policies "
+          f"{acc_solved:.4f}; the path's wall "
+          f"{time.monotonic() - t_phase:.1f} s")
     if not read_ok:
-        fail("the per-layer policy file does not read back")
-
-    # launches: a lane pass and a single forward run 7 td_vmm and 1
-    # flash_attn a layer; lm_head (quant) 2 lsq_quant a lane; QAT 2
-    # lsq_quant a dense and 1 flash_attn a layer a step (no remat)
-    lane_lanes = [chunk, 3] + [chunk] * n_chunks + [chunk]
+        fail(f"{tag}: the per-layer policy file does not read back")
+    # the passes: the 3-lane check (layer 0 clean), the search's warm-up,
+    # its chunks and the network sweep (noisy from layer 0); the singles:
+    # the 3-lane check's, the scalar search's and the solved policies'
+    lane_passes = [(3, 1), (chunk, 0)] + search + [(chunk, 0)]
     singles = 3 + per + 1
-    passes = len(lane_lanes) + singles
-    expected = {"td_vmm": 7 * n_l * passes,
-                "flash_attn": n_l * (conf["steps"] + passes),
-                "decode_gqa": 0,
-                "lsq_quant": 2 * (7 * n_l + 1) * conf["steps"]
-                + 2 * (sum(lane_lanes) + singles)}
     counts = {n: m.launches for n, m in mods.items()}
-    check_launches("lm_noise_sweep", counts, expected)
-    launches["lm_noise_sweep"] = counts
-    del params, leaves, batch, logits
-    torch.cuda.empty_cache()
-    _lm_sweep_kernel_checks(cfg, tv, solved.layers[0], sigmas, chunk)
+    check_launches(tag, counts, sweep_expected(cfg, conf["steps"],
+                                               lane_passes, singles))
+    launches[tag] = counts
+    return cfg, solved.layers[0]
 
 
-# flash_attn's f32 path (CUDA cores) against its plain version: the softmax
-# of at most 32 keys summed in another order, about 100 f32 ulps at |o| ~ 1
-ATOL_F32 = 1e-5
-
-
-def _lm_sweep_kernel_checks(cfg, tv, solved, sigmas, chunk: int) -> None:
-    """The LM sweep's kernels against their plain versions at its shapes
-    (these launches come after the path's counts were read): td_vmm's
-    lanes at a chunk's 13 lanes of M 256 over a shared w, n_chain d_model,
-    at every dense's (K, N), at sigma 0, at the sweep's per-lane sigmas
-    and at layer 0's solved policy, bit for bit against the plain version
-    and single launches; flash_attn in f32 at the single forward's batch
-    8, the 3-lane check's 24 and a chunk's 104, Sq 32, 32/8 heads of 128,
-    causal, within ATOL_F32.  lsq_quant's f32 shapes are in
-    `phase_lsq_quant`."""
+def _moe_lanes_check(rows: list, cfg, solved, sigmas) -> None:
+    """One P x E td_vmm lane call of the MoE under the sweep (a chunk's 13
+    probes x granite-moe's 32 experts; M the capacity of one probe's 8 x
+    32 tokens, wi K 1024 N 512 and wo K 512 N 1024; lane (p, e) reads
+    expert e of the one (E, K, N) stack of codes, at probe p's sigma, a
+    seed a lane) against its plain version and against 13 calls of 32
+    expert lanes, bit for bit.  At wi and the solved policy: the call
+    timed in turns with the 13 calls, a row with its bound (x and the E
+    distinct weights read once); and the whole entry point
+    (`td_linear.td_matmul_expert_lanes`: quantize x and w, one launch,
+    dequantize) timed in turns with the same steps around 13 per-probe
+    launches, bit for bit, each with its peak memory above its inputs."""
     import torch
-    from repro_torch.kernels.flash_attn import flash_attn as fa
+    from repro_torch.kernels.td_vmm import ops as td_ops
+    from repro_torch.kernels.td_vmm import td_vmm as tv
+    from repro_torch.models.ffn import _capacity
+    from repro_torch.quant import lsq
+    from repro_torch.tdsim import td_linear
+    from repro_torch.tdsim.policy import TDPolicy
     conf = LM_SWEEP
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    m = conf["global_batch"] * conf["seq_len"]
-    d, f, kv_d = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.hd
+    p_l, e = conf["chunk"], cfg.moe.num_experts
+    m = _capacity(conf["global_batch"] * conf["seq_len"], cfg.moe)
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
     kw = dict(bits_a=4, bits_w=4, n_chain=d)
+    gen = torch.Generator(device="cuda").manual_seed(23)
     sweep = [0.0] + [s for s in sigmas for _ in range(conf["n_repeats"])]
-    variants = {
-        "sigma 0": [[0.0, 1.0]] * chunk,
-        "the sweep's sigmas": [[s, 1.0] for s in sweep[:chunk]],
-        f"solved (sigma {solved.sigma_chain:.4f}, q {solved.tdc_q})":
-            [[solved.sigma_chain, float(solved.tdc_q)]] * chunk}
-    seed = torch.randint(0, 2 ** 32, (chunk,), generator=gen,
-                         dtype=torch.int64, device="cuda")
-    for label, k, n in (("attn.wq/wo", d, d), ("attn.wk/wv", d, kv_d),
-                        ("mlp.wi/wg", d, f), ("mlp.wo", f, d)):
-        x = _codes(gen, (chunk, m, k), kw["bits_a"])
-        w = _codes(gen, (k, n), kw["bits_w"])
-        for which, rows in variants.items():
-            par = torch.tensor(rows, dtype=torch.float32, device="cuda")
-            _lane_check(tv, f"{label}, {which}", x, w, par, seed, kw,
-                        tag="lm_noise_sweep")
+    variants = {"the sweep's sigmas": sweep[:p_l],
+                f"solved (sigma {solved.sigma_chain:.4f}, q "
+                f"{solved.tdc_q})": [solved.sigma_chain] * p_l}
+    seeds = torch.randint(0, 2 ** 32, (p_l * e,), generator=gen,
+                          dtype=torch.int64, device="cuda")
+    for nm, k, n in (("wi", d, f), ("wo", f, d)):
+        x = _codes(gen, (p_l * e, m, k), 4)
+        w = _codes(gen, (e, k, n), 4)
+        for which, sig in variants.items():
+            q = float(solved.tdc_q) if which.startswith("solved") else 1.0
+            par = torch.tensor([[s, q] for s in sig for _ in range(e)],
+                               dtype=torch.float32, device="cuda")
+            got = tv.td_vmm(x, w, par, seeds, **kw)
+
+            def by_probe():
+                return torch.cat([tv.td_vmm(
+                    x[i * e:(i + 1) * e], w, par[i * e:(i + 1) * e],
+                    seeds[i * e:(i + 1) * e], **kw) for i in range(p_l)])
+            probes = by_probe()
+            want = tv.td_vmm_plain(x, w, par, seeds, **kw)
+            torch.cuda.synchronize()
+            ok = _bits_equal(got, want) and _bits_equal(got, probes)
+            print(f"[lm_sweep_moe] td_vmm {nm}, {which}: {p_l} x {e} = "
+                  f"{p_l * e} lanes, M {m} K {k} N {n}, lane (p, e) reading "
+                  f"expert e of one stack: one call == plain "
+                  f"{_bits_equal(got, want)}, == {p_l} calls of {e} lanes "
+                  f"{_bits_equal(got, probes)}")
+            if not ok:
+                fail(f"td_vmm's {p_l * e} MoE sweep lanes ({nm}, {which}) "
+                     "differ from the plain version or the per-probe calls")
+            if nm == "wi" and which.startswith("solved"):
+                plain = [_event_ms(lambda: tv.td_vmm_plain(
+                    x, w, par, seeds, **kw))]
+                t = in_turns("lm_sweep_moe", f"td_vmm {nm} {p_l} x {e} "
+                             "lanes", {
+                                 "kernel": lambda: tv.td_vmm(
+                                     x, w, par, seeds, **kw),
+                                 "per_probe": by_probe},
+                             {"kernel": 10, "per_probe": 5})
+                plain.append(_event_ms(lambda: tv.td_vmm_plain(
+                    x, w, par, seeds, **kw)))
+                t["plain_ms"] = statistics.median(plain)
+                b_ms, b_by = bound_ms(
+                    4 * (p_l * e * m * k + e * k * n + p_l * e * m * n)
+                    + 16 * p_l * e, 2 * p_l * e * m * k * n * 4, "int8")
+                print(f"[lm_sweep_moe] td_vmm {nm} {p_l} x {e} lanes: "
+                      f"kernel {t['kernel_ms']:.5f} ms, {p_l} calls of {e} "
+                      f"lanes {t['per_probe_ms']:.5f} ms, plain "
+                      f"{t['plain_ms']:.4f} ms (event pair, before and "
+                      f"after: {plain[0]:.4f}, {plain[1]:.4f}), bound "
+                      f"{b_ms:.5f} ms ({b_by}): kernel at "
+                      f"{b_ms / t['kernel_ms']:.1%} of it")
+                entry = _moe_entry_check(td_linear, td_ops, lsq, TDPolicy,
+                                         gen, (p_l, e, m, k, n), par, seeds)
+                rows.append(dict(
+                    name="td_vmm", route="cuda",
+                    source="src/repro_torch/csrc/td_vmm.cu",
+                    replaces="src/repro/kernels/td_vmm/td_vmm.py:110",
+                    max_abs_err=0.0, library_ms=None, ms=t["kernel_ms"],
+                    plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                    shape=f"lm_sweep_moe {nm}, {p_l} x {e} lanes x M {m} K "
+                          f"{k} N {n} bits 4/4, lane (p, e) reading expert "
+                          "e of one stack, solved sigma",
+                    timed={"per_probe_ms": t["per_probe_ms"], **entry}))
+            del got, probes, want
         del x, w
+        torch.cuda.empty_cache()
+
+
+def _moe_entry_check(td_linear, td_ops, lsq, TDPolicy, gen, dims: tuple,
+                     par, seeds) -> dict:
+    """`td_linear.td_matmul_expert_lanes` on f32 x (P, E, M, K) and w (E,
+    K, N) against the same quantize and dequantize around P per-probe
+    launches of E lanes over the one stack of w's codes: bit for bit,
+    device ms in turns, and the peak memory each takes above its inputs.
+    Returns the timed entries of the kernel's row."""
+    import torch
+    p_l, e, m, k, n = dims
+    xf = torch.randn((p_l, e, m, k), generator=gen, device="cuda")
+    wf = torch.randn((e, k, n), generator=gen, device="cuda") * k ** -0.5
+    s_a = torch.tensor(0.5, device="cuda")
+    s_w = (2 * wf.abs().mean() / 7 ** 0.5)
+    pol = TDPolicy(mode="td", bits_a=4, bits_w=4, n_chain=k)
+    pp = par.reshape(p_l, e, 2)
+    sig, q = pp[:, 0, 0].contiguous(), pp[:, 0, 1].contiguous()
+    sd = seeds.reshape(p_l, e)
+
+    def one_call():
+        return td_linear.td_matmul_expert_lanes(xf, wf, s_a, s_w, pol, sig,
+                                                q, sd)
+
+    def per_probe():
+        x_int = lsq.lsq_quantize_int(xf, s_a, 4, signed=True)
+        w_int = lsq.lsq_quantize_int(wf, s_w, 4, signed=True)
+        y = torch.stack([td_ops.td_vmm_lanes(
+            x_int[i], w_int, pol, sig[i].expand(e), q[i].expand(e), sd[i])
+            for i in range(p_l)])
+        return y * (torch.clamp(s_a, min=1e-8) * torch.clamp(s_w, min=1e-8))
+
+    def peak_gib(fn) -> float:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    same = _bits_equal(one_call(), per_probe())
+    t = in_turns("lm_sweep_moe", f"td_matmul_expert_lanes {p_l} x {e} "
+                 "lanes (quantize, launch, dequantize)",
+                 {"kernel": one_call, "per_probe": per_probe},
+                 {"kernel": 5, "per_probe": 5})
+    mem = {"entry_peak_gib": peak_gib(one_call),
+           "entry_per_probe_peak_gib": peak_gib(per_probe)}
+    print(f"[lm_sweep_moe] td_matmul_expert_lanes M {m} K {k} N {n}: one "
+          f"call {t['kernel_ms']:.5f} ms against the same steps around "
+          f"{p_l} launches {t['per_probe_ms']:.5f} ms, equal bit for bit "
+          f"{same}; peak memory above the inputs "
+          f"{mem['entry_peak_gib']:.4f} GiB against "
+          f"{mem['entry_per_probe_peak_gib']:.4f} GiB")
+    if not same:
+        fail("td_matmul_expert_lanes differs from its per-probe launches")
+    del xf, wf
+    return {"entry_ms": t["kernel_ms"],
+            "entry_per_probe_ms": t["per_probe_ms"], **mem}
+
+
+def _sweep_denses(cfg) -> list:
+    """(label, K, N) of the td denses of a sweep model's layers, one entry
+    a shape (the MoE's experts are `_moe_lanes_check`'s; the shared
+    block, at the quant top, runs no td_vmm)."""
+    from repro_torch.models import mamba2
+    d = cfg.d_model
+    if cfg.moe is not None:
+        kv_d = cfg.n_kv_heads * cfg.hd
+        return [("attn.wq/wo", d, d), ("attn.wk/wv", d, kv_d)]
+    if cfg.rwkv is not None:
+        return [("timemix wr/wk/wv/wg/wo, chanmix wr", d, d),
+                ("chanmix wk", d, cfg.d_ff), ("chanmix wv", cfg.d_ff, d)]
+    di, nh, _, ns, _ = mamba2.dims(cfg)
+    return [("mamba.in_proj", d, 2 * di + 2 * ns + nh),
+            ("mamba.out_proj", di, d), ("mlp.wi/wg", d, cfg.d_ff),
+            ("mlp.wo", cfg.d_ff, d)]
+
+
+def phase_lm_sweep_families(launches: dict, rows: list):
+    """LM_SWEEP's recipe on the MoE, the hybrid and rwkv6
+    (`SWEEP_FAMILIES`, `_lm_sweep_family`), each path's launches checked;
+    then each model's kernels at its shapes (`_lm_sweep_kernel_checks`:
+    td_vmm's 13 shared-w lanes at its denses, flash_attn in f32 at its
+    attention or shared site), the MoE's P x E expert lanes
+    (`_moe_lanes_check`), and lsq_quant bit for bit at the QAT's f32
+    weights and activations (the MoE's expert stack and its slotted
+    tokens, zamba2's in_proj, rwkv6's chanmix wk), the expert stack timed
+    against its plain version and `fake_quantize_per_tensor_affine`."""
+    import torch
+    from repro_torch.models.ffn import _capacity
+    walls = {}
+    lsq_shapes = []
+    f32 = torch.float32
+    tv = kernel_modules()["td_vmm"]
+    for tag, (name, n_keep) in SWEEP_FAMILIES.items():
+        t0 = time.monotonic()
+        cfg, solved0 = _lm_sweep_family(f"lm_sweep_{tag}", name, n_keep,
+                                        launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _lm_sweep_kernel_checks(f"lm_sweep_{tag}", cfg, tv,
+                                solved0, _sweep_denses(cfg),
+                                attn=cfg.rwkv is None)
+        d = cfg.d_model
+        if cfg.moe is not None:
+            _moe_lanes_check(rows, cfg, solved0, LM_SWEEP["sigmas"])
+            e, fe = cfg.moe.num_experts, cfg.moe.d_ff_expert
+            cap = _capacity(LM_SWEEP["global_batch"] * LM_SWEEP["seq_len"],
+                            cfg.moe)
+            lsq_shapes += [("moe expert stack wi", (e * d, fe), f32),
+                           ("moe slotted x", (e * cap, d), f32)]
+        elif cfg.rwkv is not None:
+            lsq_shapes.append(("rwkv6 chanmix wk", (d, cfg.d_ff), f32))
+        else:
+            lsq_shapes.append(("zamba2 mamba.in_proj",
+                               (d, _sweep_denses(cfg)[0][2]), f32))
+        walls[tag] = time.monotonic() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    _lsq_rows("lm_sweep", rows, gen, lsq_shapes, "moe expert stack wi")
+    print(f"[lm_sweep_families] walls, s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+
+
+# ---------------------------------------------------------------------------
+# dbrx-132b at its published widths, cut to DBRX["layers"] of 40 layers (one
+# layer is about 3.3B parameters; 40 do not fit one card), bf16, td.
+DBRX = dict(arch="dbrx-132b", layers=2)
+
+
+def _dbrx_kernel_checks(rows: list) -> None:
+    """The kernels at dbrx's shapes against their plain versions: td_vmm's
+    16 expert lanes (w a lane, the solved sigma, a seed a lane) at the
+    prefill's capacity (4 x 128 tokens: M 160, block route) and decode's
+    (M 4, split route), wi K 6144 N 10752 and wo K 10752 N 6144, bit for
+    bit against the plain version and 16 single launches, wi timed;
+    flash_attn at the serve prefill (B 4, Sq 128, cache 144, Hq 48, Hkv
+    8, D 128, bf16: the wgmma path) and decode_gqa at decode (g 6, S
+    144), each timed against SDPA."""
+    import torch
+    from repro_torch.kernels.td_vmm import td_vmm as tv
+    from repro_torch.models.ffn import _capacity
+    from repro_torch.tdsim.policy import solve_td_policy
+    import repro_torch.configs as cfgs
+    cfg = cfgs.get(DBRX["arch"]).model
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    pol = solve_td_policy(4, 4, 576, None)
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    par = torch.tensor([[pol.sigma_chain, float(pol.tdc_q)]] * e,
+                       dtype=torch.float32, device="cuda")
+    seeds = torch.randint(0, 2 ** 32, (e,), generator=gen,
+                          dtype=torch.int64, device="cuda")
+    kw = dict(bits_a=4, bits_w=4, n_chain=576)
+    b, s_p, gen_n = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    err = 0.0
+    for label, m in (("prefill", _capacity(b * s_p, cfg.moe)),
+                     ("decode", _capacity(b, cfg.moe))):
+        for nm, k, n in (("wi", d, f), ("wo", f, d)):
+            x, w = _codes(gen, (e, m, k), 4), _codes(gen, (e, k, n), 4)
+            want = tv.td_vmm_plain(x, w, par, seeds, **kw)
+            err = max(err, _lane_check(tv, f"dbrx {label} {nm}", x, w, par,
+                                       seeds, kw, want=want, tag="dbrx"))
+            del want
+            if nm == "wi":
+                cold = m <= 8
+                plain = [_event_ms(lambda: tv.td_vmm_plain(
+                    x, w, par, seeds, **kw))]
+                t = in_turns("dbrx", f"td_vmm {label} {nm} lanes", {
+                    "kernel": lambda: tv.td_vmm(x, w, par, seeds, **kw)},
+                    {"kernel": 10}, cold=cold)
+                plain.append(_event_ms(lambda: tv.td_vmm_plain(
+                    x, w, par, seeds, **kw)))
+                t["plain_ms"] = statistics.median(plain)
+                b_ms, b_by = bound_ms(4 * (e * m * k + e * k * n + e * m * n)
+                                      + 16 * e, 2 * e * m * k * n * 4,
+                                      "int8")
+                plan = tv.td_vmm_plan(m, k, n, 576, 4)
+                print(f"[dbrx] td_vmm {label} {nm}: {e} lanes ({plan.route} "
+                      f"route, {'cold' if cold else 'warm'} L2): kernel "
+                      f"{t['kernel_ms']:.5f} ms, plain {t['plain_ms']:.4f} "
+                      f"ms (event pair, before and after: {plain[0]:.4f}, "
+                      f"{plain[1]:.4f}), bound {b_ms:.5f} ms ({b_by}): "
+                      f"kernel at {b_ms / t['kernel_ms']:.1%} of it")
+                rows.append(dict(
+                    name="td_vmm", route="cuda",
+                    source="src/repro_torch/csrc/td_vmm.cu",
+                    replaces="src/repro/kernels/td_vmm/td_vmm.py:110",
+                    max_abs_err=err, library_ms=None, ms=t["kernel_ms"],
+                    plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                    shape=f"dbrx {label} {nm}, lanes {e} x M {m} K {k} N "
+                          f"{n} bits 4/4, w a lane, {plan.route} route, "
+                          "solved sigma"))
+            del x, w
+            torch.cuda.empty_cache()
+    s_cache = s_p + gen_n
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    bf = torch.bfloat16
+    _flash_rows("dbrx", rows, gen, [
+        ("prefill", b, s_p, s_cache, hq, hkv, hd, [s_p] * b, True, bf, bf)],
+        timed=("prefill",))
+    _decode_rows(rows, "dbrx", gen, hq, hkv, hd, [
+        ("decode", b, s_cache, s_p + gen_n // 2)])
+
+
+def phase_dbrx(launches: dict, rows: list):
+    """dbrx-132b at its published widths (6144, 48/8 heads of 128, 16
+    experts top-4 of 10752, vocab 100352) cut to DBRX["layers"] of 40
+    layers, bf16, td (4/4, the port's solve): SERVE's batch through
+    `serve.run` (launches checked, host syncs a step counted: none
+    allowed), the smoke model on the card against the CPU, then the
+    kernels at its shapes.  No training on the card: one full-width
+    layer's f32 training state is about 70 GB."""
+    import torch
+    import repro_torch.configs as cfgs
+    from repro_torch.tdsim.policy import TDPolicy
+    t_phase = time.monotonic()
+    arch = family_arch(DBRX["arch"], "td", DBRX["layers"])
+    cfg = arch.model
+    if (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.vocab,
+            cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_ff_expert) != \
+            (6144, 48, 8, 100352, 16, 4, 10752):
+        fail(f"dbrx-132b widths {cfg}")
+    print(f"[dbrx] {cfg.name}: {cfg.n_layers} of 40 layers (cut: 40 layers "
+          f"are about 132B parameters), compute "
+          f"{arch.train.compute_dtype}")
+    _serve_full("dbrx_serve", arch, SERVE["batch"], SERVE["prompt_len"],
+                SERVE["gen"], launches, syncs=True)
+    gc.collect()
     torch.cuda.empty_cache()
-    for b in (conf["global_batch"], 3 * conf["global_batch"],
-              chunk * conf["global_batch"]):
-        sq = conf["seq_len"]
-        q = torch.randn((b, sq, cfg.n_heads, cfg.hd), generator=gen,
-                        device="cuda")
-        k, v = (torch.randn((b, sq, cfg.n_kv_heads, cfg.hd), generator=gen,
-                            device="cuda") for _ in range(2))
-        args = (q, k, v, _i32([sq] * b), _i32([0]))
-        err = float((fa.flash_attn(*args, causal=True)
-                     - fa.flash_attn_plain(*args, causal=True)).abs().max())
-        print(f"[lm_noise_sweep] flash_attn f32 B={b} Sq={sq} "
-              f"Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} D={cfg.hd} causal: "
-              f"max |kernel - plain| {err:.3g} (tolerance {ATOL_F32:g})")
-        if not err <= ATOL_F32:
-            fail(f"flash_attn f32 disagrees with its plain version (B {b})")
-        del q, k, v, args
+    t_serve = time.monotonic() - t_phase
+    smoke = cfgs.get_smoke(DBRX["arch"])
+    # a dropless capacity, so that a token's experts do not depend on the
+    # rest of the batch
+    _family_small("dbrx_small", smoke.replace(model=dataclasses.replace(
+        smoke.model, moe=dataclasses.replace(smoke.model.moe,
+                                             capacity_factor=8.0))),
+                  TDPolicy(mode="td", n_chain=64))
+    _dbrx_kernel_checks(rows)
+    print(f"[dbrx] phase wall {time.monotonic() - t_phase:.1f} s (serve "
+          f"{t_serve:.1f})")
+
+
+# ---------------------------------------------------------------------------
+# The explorer's disk store, corner fan-out and refinement on the card, at
+# benchmarks/bench_explorer.py's cases (:41-50) and full-run sizes.
+EXPLORER = dict(parity_target=512, res_target=1_000_000,
+                res_max_axis_values=16_000, res_max_levels=24,
+                fanout="edge", store=ROOT / "build" / "explorer_store")
+
+
+def phase_explorer():
+    """`ExplorerService.refine` on bench_explorer's parity case (target 512,
+    coarse 9, tau 0.25) bit-identical to the port's dense oracle on the
+    card and equal to the CPU's refine (evaluated values, levels and
+    integer fields equal, floats within rtol 1e-4); its resolution case
+    (target 1e6) at >= 1e7 effective points from <= 2e5 evaluated; a round
+    trip through the disk store across two services; the corner fan-out
+    against the serial loop, bit-identical, both walls."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core import design_grid, explorer
+    from repro_torch.core import scenario as sc
+    conf = EXPLORER
+    parity_sc = sc.Scenario("explorer-parity", ns=(64, 256, 1024),
+                            bit_widths=(2, 4), sigma_maxes=(0.5, 2.0),
+                            vdds=(0.40, 0.80))
+    res_sc = sc.Scenario("explorer-res", ns=(576,), bit_widths=(2, 4),
+                         sigma_maxes=(0.5, 2.0), vdds=(0.40, 0.80))
+    t_phase = time.monotonic()
+    svc = explorer.ExplorerService()
+    g_p = conf["parity_target"]
+    kw = dict(target=g_p, coarse=9, tau=0.25, max_axis_values=g_p)
+    t0 = time.perf_counter()
+    res = svc.refine(parity_sc, **kw)
+    t_ref = time.perf_counter() - t0
+    axes = svc._corner_axes(parity_sc, sc.get_corner(None))
+    oracle = design_grid.minimize_over_vdd(svc.sweep_axes(
+        **{**axes, "vdds": tuple(float(v) for v in res.dense_values)}))
+    fields = ("redundancy", "tdc_q", "vdd_opt", "e_mac")
+    parity = {f: bool(np.array_equal(getattr(res.grid, f),
+                                     getattr(oracle, f))) for f in fields}
+    parity["winner"] = bool(np.array_equal(res.grid.winners(),
+                                           oracle.winners()))
+    cpu = explorer.ExplorerService(device="cpu").refine(parity_sc, **kw)
+    same = bool(np.array_equal(cpu.evaluated_values, res.evaluated_values)
+                and cpu.levels == res.levels
+                and all(np.array_equal(getattr(cpu.grid, f),
+                                       getattr(res.grid, f))
+                        for f in ("redundancy", "tdc_q", "vdd_opt"))
+                and all(np.allclose(getattr(cpu.grid, f),
+                                    getattr(res.grid, f), rtol=1e-4, atol=0)
+                        for f in ("e_mac", "throughput", "area_per_mac")))
+    print(f"[explorer] refine parity (target {g_p}): {res.levels} levels, "
+          f"{len(res.evaluated_values)} axis values, "
+          f"{res.points_evaluated} points evaluated, wall {t_ref:.3f} s; "
+          f"identical to the dense oracle on the card {parity}; equal to "
+          f"the CPU's refine {same}")
+    if not all(parity.values()) or not same:
+        fail("explorer refine differs from the dense oracle or the CPU")
+    t0 = time.perf_counter()
+    rr = svc.refine(res_sc, target=conf["res_target"], coarse=9, tau=0.25,
+                    max_axis_values=conf["res_max_axis_values"],
+                    max_levels=conf["res_max_levels"])
+    t_res = time.perf_counter() - t0
+    print(f"[explorer] refine resolution (target {conf['res_target']}): "
+          f"{rr.levels} levels, {rr.points_evaluated} points evaluated, "
+          f"{rr.effective_points} effective, wall {t_res:.3f} s")
+    if rr.points_evaluated > 200_000 or rr.effective_points < 10_000_000:
+        fail(f"explorer refine resolution: {rr.points_evaluated} evaluated,"
+             f" {rr.effective_points} effective")
+    shutil.rmtree(conf["store"], ignore_errors=True)
+    a = explorer.ExplorerService(cache_dir=str(conf["store"]))
+    g1, i1 = a.sweep_info("edge", "ss")
+    b = explorer.ExplorerService(cache_dir=str(conf["store"]))
+    g2, i2 = b.sweep_info("edge", "ss")
+    stored = i2["source"] == "disk" and all(
+        np.array_equal(getattr(g1, f), getattr(g2, f))
+        for f in design_grid._FIELDS)
+    print(f"[explorer] disk store: {i1['source']} in {i1['elapsed_ms']:.1f} "
+          f"ms, then a second service's {i2['source']} hit in "
+          f"{i2['elapsed_ms']:.1f} ms, {g2.n_points} points, equal "
+          f"{stored}")
+    shutil.rmtree(conf["store"], ignore_errors=True)
+    if not stored:
+        fail("explorer disk store: the second service did not read it back")
+    spec = sc.get_scenario(conf["fanout"])
+    svc.sweep_scenarios(spec, parallel=False, use_cache=False)    # warm-up
+    svc.sweep_scenarios(spec, parallel=True, use_cache=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = svc.sweep_scenarios(spec, parallel=False, use_cache=False)
+    t_serial = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fan = svc.sweep_scenarios(spec, parallel=True, use_cache=False)
+    t_fan = time.perf_counter() - t0
+    identical = list(fan) == list(serial) and all(
+        np.array_equal(getattr(serial[c], f), getattr(fan[c], f))
+        for c in serial for f in design_grid._FIELDS)
+    print(f"[explorer] fan-out {spec.name}, corners {list(serial)} on "
+          f"{torch.cuda.device_count()} device(s): serial {t_serial * 1e3:.1f}"
+          f" ms, threads {t_fan * 1e3:.1f} ms, identical {identical}; stats "
+          f"{svc.stats.snapshot()}; phase wall "
+          f"{time.monotonic() - t_phase:.1f} s")
+    if not identical or svc.stats.fanout_sweeps != 2 * len(serial):
+        fail("explorer fan-out differs from the serial loop")
 
 
 # ---------------------------------------------------------------------------
@@ -5210,11 +5750,15 @@ def main() -> None:
     print(gpu_line())
     phase_yardstick()
     phase_design_space()
+    t0 = time.monotonic()
+    phase_explorer()
+    t_explorer = time.monotonic() - t0
     phase_policy()
     phase_small_reference()
     phase_train_small()
     rows: list = []
-    walls: dict = {"build to train_small": time.monotonic() - t_start}
+    walls: dict = {"build to train_small": time.monotonic() - t_start,
+                   "explorer": t_explorer}
 
     def timed(name: str, fn, *args) -> None:
         t0 = time.monotonic()
@@ -5228,14 +5772,15 @@ def main() -> None:
     flush_l2(release=True)
     launches: dict = {}
     with_rows = (phase_moe, phase_dense_configs, phase_encdec,
-                 phase_frontend, phase_zamba2, phase_rwkv6, phase_noise_loop,
-                 phase_td_attention, phase_drift_traces)
+                 phase_frontend, phase_zamba2, phase_rwkv6, phase_dbrx,
+                 phase_noise_loop, phase_td_attention,
+                 phase_lm_sweep_families, phase_drift_traces)
     for phase in (phase_serve, phase_scheduler, phase_scheduler_scenario,
                   phase_train, phase_moe, phase_dense_configs, phase_encdec,
-                  phase_frontend, phase_zamba2, phase_rwkv6,
+                  phase_frontend, phase_zamba2, phase_rwkv6, phase_dbrx,
                   phase_noise_loop, phase_td_attention,
-                  phase_lm_noise_sweep, phase_drift_traces,
-                  phase_chaos_serve, phase_chaos_train):
+                  phase_lm_noise_sweep, phase_lm_sweep_families,
+                  phase_drift_traces, phase_chaos_serve, phase_chaos_train):
         gc.collect()           # engines wrapped by `_counted` form cycles
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()

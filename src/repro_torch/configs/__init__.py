@@ -1,12 +1,13 @@
 """Architecture registry of the port: `--arch <id>` resolution.
 
-The dense decoders ``qwen3-8b``, ``granite-8b``, ``qwen2.5-3b`` and
-``qwen3-4b``, the MoE decoder ``granite-moe-1b-a400m``, the
-vision-frontend decoder ``internvl2-26b`` (a stub frontend: precomputed
-patch embeddings through an adapter), the encoder-decoder
-``seamless-m4t-large-v2`` (a stub audio frontend), the mamba2 / shared
-attention hybrid ``zamba2-1.2b`` and the attention-free ``rwkv6-1.6b``
-are ported so far; ``dbrx-132b`` raises (ROADMAP §1 lists it).
+Every architecture of the reference's registry: the dense decoders
+``qwen3-8b``, ``granite-8b``, ``qwen2.5-3b`` and ``qwen3-4b``, the MoE
+decoders ``granite-moe-1b-a400m`` and ``dbrx-132b``, the vision-frontend
+decoder ``internvl2-26b`` (a stub frontend: precomputed patch embeddings
+through an adapter), the encoder-decoder ``seamless-m4t-large-v2`` (a
+stub audio frontend), the mamba2 / shared attention hybrid
+``zamba2-1.2b`` and the attention-free ``rwkv6-1.6b``.  An unknown name
+raises `KeyError`, as the reference's `get` does.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from repro_torch.configs.base import (ArchConfig, ModelCfg, MoECfg, RWKVCfg,
                                       TrainCfg)
 
 _MODULES = {
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "granite-8b": "repro_torch.configs.granite_8b",
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
     "internvl2-26b": "repro_torch.configs.internvl2_26b",
@@ -32,10 +34,6 @@ ARCH_NAMES = tuple(_MODULES)
 
 
 def _module(name: str):
-    if name not in _MODULES:
-        raise NotImplementedError(
-            f"arch {name!r} is not yet ported to repro_torch (ported: "
-            f"{', '.join(ARCH_NAMES)}; see ROADMAP.md §1)")
     return importlib.import_module(_MODULES[name])
 
 

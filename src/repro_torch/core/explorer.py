@@ -1,30 +1,46 @@
 """Design-space explorer service, the in-process part (port of
-`repro/core/explorer.py`): an in-memory cache of sweep results and a memo
-of point queries.
+`repro/core/explorer.py`): a sweep cache in memory and on disk, the
+corner fan-out, incremental grid refinement and a memo of point queries.
 
 ``ExplorerService``
     A long-lived service over the scenario engine.  It caches sweep
-    results in memory (LRU), keyed on (TechLib content hash, corner-applied
-    axis values, grid shape, minimize_over reductions, code-version salt),
-    so a repeated or reduction-sliced query -- winner map, Pareto frontier,
-    `minimize_over_*` argmin, policy resolve -- is a dictionary lookup.
-    The point queries (`evaluate_td`, `optimal_td_vdds`) are memoized the
-    same way and return copies.  Counters live in `ExplorerStats`.
-    ``device`` (None = CUDA) is where a miss sweeps; a call may name
-    another.
+    results in memory (LRU) and, with a ``cache_dir``
+    (``REPRO_EXPLORER_CACHE_DIR`` for the default service), on disk as
+    `DesignGrid.save_npz` files written under an atomic rename, keyed on
+    (TechLib content hash, corner-applied axis values, grid shape,
+    minimize_over reductions, code-version salt), so a repeated or
+    reduction-sliced query -- winner map, Pareto frontier,
+    `minimize_over_*` argmin, policy resolve -- is a dictionary lookup,
+    across processes with a disk store.  The point queries
+    (`evaluate_td`, `optimal_td_vdds`) are memoized the same way and
+    return copies.  Counters live in `ExplorerStats`.  ``device`` (None =
+    CUDA) is where a miss sweeps; a call may name another.
+
+``sweep_scenarios(parallel=True)``
+    A thread per corner, corners round-robined over the visible CUDA
+    devices (each thread under `torch.cuda.device(i)`), the results
+    bit-identical to the serial loop.
+
+``refine``
+    A coarse sweep over a virtual dense axis (``target`` values, the Vdd
+    axis by default), then dense re-sweeps of only the intervals that can
+    still move some point's argmin, merged into one grid
+    (`design_grid.concat_along_axis`) and reduced: the argmin at the
+    dense axis's resolution from a fraction of its points
+    (`RefineResult`).
 
 ``service()`` / ``set_service()``
     The process-wide default instance; `tdsim.policy` routes every policy
     solve through it, so re-resolving a network is a memo lookup.
 
-One lock (an RLock) guards the caches and the counters, so a staged
-rebuild thread may solve through the service while the serve loop does;
-`count_fallback` counts a remote resolve degraded to this process
+One lock (an RLock) guards the caches, the disk store's reads and
+writes and the counters, so a staged rebuild thread may solve through the
+service while the serve loop does; `count_fallback` counts a remote
+resolve degraded to this process
 (`launch.explore.resolve_with_fallback`).  The TCP front end is
-`launch/explore.py`.  The reference's on-disk store (``cache_dir``),
-incremental refinement (`refine`) and thread-pool corner fan-out are not
-ported yet (ROADMAP §1, item 8): asking for them raises
-`NotImplementedError`.
+`launch/explore.py`.  The code salt hashes the port's own engine
+sources, so a torch grid never shares a key (nor a disk file) with a JAX
+grid.
 """
 from __future__ import annotations
 
@@ -33,19 +49,22 @@ import dataclasses
 import functools
 import hashlib
 import inspect
+import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core import chain, design_grid
 from repro_torch.core import constants as C
 from repro_torch.core import scenario as scenario_mod
 from repro_torch.core.techlib import TechLib, get_techlib
 
-__all__ = ["ExplorerService", "ExplorerStats", "service", "set_service",
-           "grid_cache_key"]
+__all__ = ["ExplorerService", "ExplorerStats", "RefineResult", "service",
+           "set_service", "grid_cache_key"]
 
 _REDUCERS = {
     "vdd": design_grid.minimize_over_vdd,
@@ -54,10 +73,9 @@ _REDUCERS = {
 }
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} of the explorer is not yet ported to repro_torch "
-        "(ROADMAP.md §1, item 8)")
+# axis name -> sweep_axes keyword holding that axis's values
+_AXIS_KW = {"n": "ns", "sigma": "sigma_maxes", "vdd": "vdds",
+            "p_x_one": "p_x_ones", "w_bit_sparsity": "w_bit_sparsities"}
 
 
 @functools.lru_cache(maxsize=1)
@@ -105,8 +123,8 @@ class ExplorerStats:
     """Service counters (mutate in place, snapshot to read).
 
     ``points_evaluated`` counts grid points actually solved by the engine;
-    ``points_served`` counts points returned to callers.  The reference's
-    disk, refinement and fan-out counters stay 0 here."""
+    ``points_served`` counts points returned to callers: the gap is what
+    the caches saved."""
     queries: int = 0
     memory_hits: int = 0
     disk_hits: int = 0
@@ -133,15 +151,34 @@ class ExplorerStats:
                 if self.queries else 0.0)
 
 
+@dataclasses.dataclass(frozen=True)
+class RefineResult:
+    """Outcome of one incremental-refinement run.
+
+    ``grid`` is the merged grid after the requested reductions (for the
+    default Vdd refinement `minimize_over_vdd`, so ``vdd_opt`` holds each
+    point's supply at the dense axis's resolution); ``merged`` is the raw
+    merged grid (a non-uniform refined axis: the coarse values and the
+    argmin neighborhoods).  ``effective_points`` is the dense resolution
+    the argmin is exact against (the other axes' product x ``target``);
+    ``points_evaluated`` is what was solved."""
+    grid: design_grid.DesignGrid
+    merged: design_grid.DesignGrid
+    refine_axis: str
+    dense_values: np.ndarray
+    evaluated_values: np.ndarray
+    levels: int
+    points_evaluated: int
+    effective_points: int
+
+
 class ExplorerService:
     """Long-lived design-space explorer (see module docstring)."""
 
     def __init__(self, cache_dir: str | None = None,
                  max_memory_entries: int = 64,
                  max_point_entries: int = 512, device=None):
-        if cache_dir:
-            raise _not_ported("the on-disk store (cache_dir)")
-        self.cache_dir = None
+        self.cache_dir = cache_dir or None
         self.device = device
         self._grids: collections.OrderedDict[str, design_grid.DesignGrid] \
             = collections.OrderedDict()
@@ -152,6 +189,8 @@ class ExplorerService:
         self._lock = threading.RLock()
         self.stats = ExplorerStats()
         self.started_at = time.time()
+        if self.cache_dir:
+            os.makedirs(self.cache_dir, exist_ok=True)
 
     def _device(self, device):
         return self.device if device is None else device
@@ -169,7 +208,7 @@ class ExplorerService:
                        for g in self._grids.values())
 
     def clear(self) -> None:
-        """Drop the in-memory caches."""
+        """Drop the in-memory caches (the disk store is left alone)."""
         with self._lock:
             self._grids.clear()
             self._points.clear()
@@ -183,20 +222,48 @@ class ExplorerService:
             self.stats.fallback_resolves += 1
             return self.stats.fallback_resolves
 
-    def _grid_get(self, key: str) -> design_grid.DesignGrid | None:
+    def _disk_path(self, key: str) -> str | None:
+        return (os.path.join(self.cache_dir, key + ".npz")
+                if self.cache_dir else None)
+
+    def _grid_get(self, key: str) -> tuple[design_grid.DesignGrid | None,
+                                           str]:
+        """The cached grid of ``key`` and where it came from ("memory",
+        "disk"; None and "miss" when neither has it).  A disk hit enters
+        the LRU."""
         with self._lock:
             g = self._grids.get(key)
             if g is not None:
                 self._grids.move_to_end(key)
-            return g
+                return g, "memory"
+            path = self._disk_path(key)
+            if path and os.path.exists(path):
+                g = design_grid.DesignGrid.load_npz(path)
+                self._grid_put(key, g, to_disk=False)
+                return g, "disk"
+        return None, "miss"
 
-    def _grid_put(self, key: str, g: design_grid.DesignGrid) -> None:
+    def _grid_put(self, key: str, g: design_grid.DesignGrid,
+                  to_disk: bool = True) -> None:
         with self._lock:
             self._grids[key] = g
             self._grids.move_to_end(key)
             while len(self._grids) > self._max_grids:
                 self._grids.popitem(last=False)
                 self.stats.evictions += 1
+            path = self._disk_path(key)
+            if to_disk and path and not os.path.exists(path):
+                # the temporary name keeps the .npz suffix (np.savez
+                # appends it); the rename is atomic, so another process
+                # writing the same key races benignly to identical content
+                tmp = (path[:-len(".npz")]
+                       + f".tmp.{os.getpid()}.{threading.get_ident()}.npz")
+                try:
+                    g.save_npz(tmp)
+                    os.replace(tmp, path)
+                finally:
+                    if os.path.exists(tmp):
+                        os.remove(tmp)
 
     # -- sweeps ------------------------------------------------------------
     @staticmethod
@@ -230,9 +297,9 @@ class ExplorerService:
     def sweep_axes_info(self, minimize_over: Sequence[str] = (),
                         use_cache: bool = True, device=None,
                         **axes) -> tuple[design_grid.DesignGrid, dict]:
-        """One (possibly reduced) sweep through the cache.  Returns the
-        grid plus an info dict: ``source`` in {memory, computed, bypass}
-        and ``elapsed_ms``.  Cached grids are shared -- treat them as
+        """One (possibly reduced) sweep through the caches.  Returns the
+        grid plus an info dict: ``source`` in {memory, disk, computed} and
+        ``elapsed_ms``.  Cached grids are shared -- treat them as
         read-only."""
         ax = self._normalize_axes(**axes)
         minimize_over = tuple(minimize_over)
@@ -240,8 +307,7 @@ class ExplorerService:
         t0 = time.perf_counter()
         with self._lock:
             self.stats.queries += 1
-        g = self._grid_get(key) if use_cache else None
-        source = "memory" if g is not None else "bypass"
+        g, source = self._grid_get(key) if use_cache else (None, "bypass")
         if g is None:
             g = design_grid.sweep_batched(
                 domains=ax["domains"], ns=ax["ns"],
@@ -266,7 +332,10 @@ class ExplorerService:
                 self.stats.points_evaluated += g.n_points
         else:
             with self._lock:
-                self.stats.memory_hits += 1
+                if source == "memory":
+                    self.stats.memory_hits += 1
+                else:
+                    self.stats.disk_hits += 1
         elapsed = time.perf_counter() - t0
         with self._lock:
             self.stats.points_served += g.n_points
@@ -308,26 +377,168 @@ class ExplorerService:
         info.update(scenario=sc_.name, corner=co.name)
         return g, info
 
+    # -- corner fan-out ----------------------------------------------------
     def sweep_scenarios(self, scenario,
                         corners: Sequence | None = None,
                         minimize_over: Sequence[str] = (),
                         parallel: bool | None = None,
                         use_cache: bool = True, device=None
                         ) -> dict[str, design_grid.DesignGrid]:
-        """All corners of a scenario, one after another on the service's
-        device (the reference's thread-pool fan-out is not ported:
-        ``parallel=True`` raises)."""
-        if parallel:
-            raise _not_ported("the corner fan-out (parallel=True)")
+        """All corners of a scenario.  ``parallel`` runs a thread per
+        corner, corners round-robined over `torch.cuda.device_count()`
+        devices, each thread under `torch.cuda.device(i)` (the current
+        device is a thread's own); on the CPU, or on one card, the threads
+        share the device and overlap only their host work.  The default is
+        the threads when there are several corners and several cards, else
+        the serial loop: unlike the reference's jitted sweeps, whose threads
+        overlap compilation, the port's threads on one card contend for its
+        one stream and were slower than the loop on an H100.  The results
+        are bit-identical to the serial loop's."""
         sc_ = scenario_mod.get_scenario(scenario)
         cos = [scenario_mod.get_corner(c)
                for c in (corners if corners is not None else sc_.corners)]
-        return {co.name: self.sweep(sc_, co, minimize_over, use_cache,
-                                    device)
-                for co in cos}
+        dev = self._device(device)
+        on_cuda = dev is None or torch.device(dev).type == "cuda"
+        n_dev = torch.cuda.device_count() if on_cuda else 0
+        if parallel is None:
+            parallel = n_dev > 1
+        if not parallel or len(cos) <= 1:
+            return {co.name: self.sweep(sc_, co, minimize_over, use_cache,
+                                        device)
+                    for co in cos}
 
-    def refine(self, *args, **kw):
-        raise _not_ported("incremental grid refinement (refine)")
+        def one(i: int, co: scenario_mod.Corner) -> design_grid.DesignGrid:
+            if not n_dev:
+                return self.sweep(sc_, co, minimize_over, use_cache, dev)
+            with torch.cuda.device(i % n_dev):
+                return self.sweep(sc_, co, minimize_over, use_cache,
+                                  torch.device("cuda", i % n_dev))
+
+        with ThreadPoolExecutor(max_workers=len(cos)) as ex:
+            futs = [(co.name, ex.submit(one, i, co))
+                    for i, co in enumerate(cos)]
+            out = {name: f.result() for name, f in futs}
+        with self._lock:
+            self.stats.fanout_sweeps += len(cos)
+        return out
+
+    # -- incremental refinement --------------------------------------------
+    def refine(self, scenario, corner=None, *, refine_axis: str = "vdd",
+               lo: float | None = None, hi: float | None = None,
+               target: int = 4096, coarse: int = 9, tau: float = 0.05,
+               max_axis_values: int = 128, max_levels: int = 12,
+               metric: str = "e_mac",
+               minimize_over: Sequence[str] | None = None,
+               use_cache: bool = True, device=None) -> RefineResult:
+        """Coarse sweep, then dense re-sweeps of the near-optimal intervals
+        (the reference's algorithm, line for line).
+
+        The refined axis is replaced by a virtual dense grid of ``target``
+        values spanning [lo, hi] (default: the corner-applied scenario
+        axis's span).  Level 0 evaluates a ``coarse`` subsample of its
+        index space; every later level flags the evaluated intervals that
+        could still move some grid point's argmin -- the interval that
+        brackets the point's current argmin, and those where an integer
+        output (redundancy, TDC q) changes while the interval's endpoint
+        minimum lies within ``tau`` of the point's range above its best --
+        and re-sweeps a ``coarse`` subsample of each, until every flagged
+        interval is down to adjacent dense indices, ``max_axis_values``
+        values have been evaluated or ``max_levels`` levels have run.
+        Each level sweeps only the new values (one cached `sweep_axes`
+        call) and merges them (`design_grid.concat_along_axis`).  For
+        ``refine_axis="vdd"`` the merged grid is reduced by
+        `minimize_over_vdd`; other axes return it unreduced unless
+        ``minimize_over`` says otherwise."""
+        if refine_axis not in _AXIS_KW:
+            raise ValueError(f"cannot refine axis {refine_axis!r} "
+                             f"(refinable: {sorted(_AXIS_KW)})")
+        if refine_axis == "n":
+            raise ValueError("n is integer-valued; refine a continuous axis")
+        sc_ = scenario_mod.get_scenario(scenario)
+        co = scenario_mod.get_corner(corner)
+        axes = self._corner_axes(sc_, co)
+        kw = _AXIS_KW[refine_axis]
+        base = np.asarray(axes[kw] if axes[kw] is not None
+                          else (float(chain.sigma_max_exact()),), np.float64)
+        lo = float(base.min()) if lo is None else float(lo)
+        hi = float(base.max()) if hi is None else float(hi)
+        target = int(target)
+        if target < 2 or hi <= lo:
+            raise ValueError("need target >= 2 and hi > lo to refine")
+        coarse = max(3, int(coarse))
+        dense = np.linspace(lo, hi, target)
+        ax_pos = design_grid._AXES.index(refine_axis)
+
+        def sweep_at(idx: np.ndarray) -> design_grid.DesignGrid:
+            vals = tuple(float(v) for v in dense[np.sort(idx)])
+            return self.sweep_axes(use_cache=use_cache, device=device,
+                                   **{**axes, kw: vals})
+
+        eidx = np.unique(np.round(
+            np.linspace(0, target - 1, min(coarse, target))).astype(int))
+        merged = sweep_at(eidx)
+        levels = 1
+        while levels < max_levels:
+            # the intervals that can still move a point's argmin: the one
+            # bracketing it, and those where redundancy or q changes (a
+            # notch on the smooth envelope) within the tau band of the
+            # point's range (capped at |best|)
+            n_e = len(eidx)
+            arr = np.moveaxis(getattr(merged, metric), ax_pos,
+                              -1).reshape(-1, n_e)
+            sign = -arr if metric == "throughput" else arr
+            best = sign.min(axis=-1, keepdims=True)
+            spread = np.minimum(sign.max(axis=-1, keepdims=True) - best,
+                                np.abs(best))
+            near = np.minimum(sign[:, :-1], sign[:, 1:]) <= best + tau * spread
+            trans = np.zeros_like(near)
+            for f in ("redundancy", "tdc_q"):
+                fv = np.moveaxis(getattr(merged, f), ax_pos,
+                                 -1).reshape(-1, n_e)
+                trans |= fv[:, :-1] != fv[:, 1:]
+            pos = sign.argmin(axis=-1)
+            bracket = np.zeros_like(near)
+            rows = np.arange(near.shape[0])
+            bracket[rows, np.clip(pos - 1, 0, n_e - 2)] = True
+            bracket[rows, np.clip(pos, 0, n_e - 2)] = True
+            flagged = np.any(bracket | (trans & near), axis=0)
+            eset = set(int(i) for i in eidx)
+            new: set[int] = set()
+            for i in np.nonzero(flagged)[0]:
+                left, right = int(eidx[i]), int(eidx[i + 1])
+                if right - left <= 1:
+                    continue          # already at the dense resolution
+                cand = np.unique(np.round(
+                    np.linspace(left, right, coarse)).astype(int))
+                new.update(int(c) for c in cand if int(c) not in eset)
+            if not new:
+                break                 # every near-optimal interval resolved
+            new_idx = np.asarray(sorted(new), int)
+            room = max_axis_values - len(eidx)
+            if room <= 0:
+                break                 # the axis-value budget is spent
+            if len(new_idx) > room:
+                sel = np.unique(np.round(
+                    np.linspace(0, len(new_idx) - 1, room)).astype(int))
+                new_idx = new_idx[sel]
+            merged = design_grid.concat_along_axis(
+                [merged, sweep_at(new_idx)], refine_axis)
+            eidx = np.union1d(eidx, new_idx)
+            levels += 1
+        if minimize_over is None:
+            minimize_over = ("vdd",) if refine_axis == "vdd" else ()
+        reduced = merged
+        for axis in minimize_over:
+            reduced = _REDUCERS[axis](reduced)
+        with self._lock:
+            self.stats.refine_runs += 1
+            self.stats.refine_levels += levels
+        other = merged.n_points // len(eidx)
+        return RefineResult(grid=reduced, merged=merged,
+                            refine_axis=refine_axis, dense_values=dense,
+                            evaluated_values=dense[eidx], levels=levels,
+                            points_evaluated=merged.n_points,
+                            effective_points=other * target)
 
     # -- memoized point queries (the policy-resolve path) -------------------
     def evaluate_td(self, n, sigma_max, vdd=C.VDD_NOM, *, bits: int,
@@ -417,11 +628,13 @@ _SERVICE_LOCK = threading.Lock()
 
 def service() -> ExplorerService:
     """The process-wide default `ExplorerService` (created on first use, on
-    CUDA).  Every policy solve in `tdsim.policy` routes through it."""
+    CUDA; its disk store at ``REPRO_EXPLORER_CACHE_DIR`` when that is
+    set).  Every policy solve in `tdsim.policy` routes through it."""
     global _SERVICE
     with _SERVICE_LOCK:
         if _SERVICE is None:
-            _SERVICE = ExplorerService()
+            _SERVICE = ExplorerService(
+                cache_dir=os.environ.get("REPRO_EXPLORER_CACHE_DIR") or None)
         return _SERVICE
 
 

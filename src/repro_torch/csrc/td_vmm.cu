@@ -72,8 +72,11 @@
 //
 // The lane axis (the reference's td_vmm under jax.vmap: one probe of the
 // batched noise search, or one head of TD attention, a lane): both routes
-// take `lanes` on gridDim.z.  Lane l reads x at l*M*K, w at l*w_stride (0:
-// one w shared by every lane), params at 2*l and seed at l, and writes out
+// take `lanes` on gridDim.z.  Lane l reads x at l*M*K, w at
+// (l % w_lanes)*w_stride (w_stride 0: one w shared by every lane; w_lanes
+// below `lanes`: the P x E expert lanes of the MoE under the noise search,
+// lane p*E + e reading expert e's w, with no copy of w a probe), params at
+// 2*l and seed at l, and writes out
 // at l*M*N; on the split route its scratch is at l*n_seg*M*N and its
 // column-tile counters at l*N.  The offsets are 64-bit; the noise index
 // stays the per-lane ((b*n_seg+seg)*M+row)*N+col in uint32, as vmap leaves
@@ -248,12 +251,12 @@ td_vmm_block(const int32_t* __restrict__ x, const int32_t* __restrict__ w,
              const float* __restrict__ params,
              const long long* __restrict__ seed_p, float* __restrict__ out,
              int M, int N, int K, int n_chain, int k_true, int bits_w,
-             int vec, long long w_stride) {
+             int vec, long long w_stride, int w_lanes) {
   constexpr int MI = block_mi(BITS_A);
   {  // this block's lane
     const long long lane = blockIdx.z;
     x += lane * M * K;
-    w += lane * w_stride;
+    w += (lane % w_lanes) * w_stride;
     params += 2 * lane;
     seed_p += lane;
     out += lane * M * N;
@@ -470,13 +473,14 @@ td_vmm_split(const int32_t* __restrict__ x, const int32_t* __restrict__ w,
              const long long* __restrict__ seed_p,
              float* __restrict__ scratch, int* __restrict__ counters,
              float* __restrict__ out, int M, int N, int K, int n_chain,
-             int k_true, int bits_w, int vec, long long w_stride) {
+             int k_true, int bits_w, int vec, long long w_stride,
+             int w_lanes) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int sm_last;
   {  // this block's lane
     const long long lane = blockIdx.z;
     x += lane * M * K;
-    w += lane * w_stride;
+    w += (lane % w_lanes) * w_stride;
     params += 2 * lane;
     seed_p += lane;
     out += lane * M * N;
@@ -651,7 +655,8 @@ template <int B>
 int launch(int route, cudaStream_t s, const int32_t* x, const int32_t* w,
            const float* params, const long long* seed, float* scratch,
            int* counters, float* out, int M, int N, int K, int n_chain,
-           int k_true, int bits_w, int vec, int lanes, long long w_stride) {
+           int k_true, int bits_w, int vec, int lanes, long long w_stride,
+           int w_lanes) {
   if (route == 0) {
     constexpr int BM = 2 * 16 * block_mi(B);
     const size_t smem = block_smem<B>();
@@ -665,7 +670,7 @@ int launch(int route, cudaStream_t s, const int32_t* x, const int32_t* w,
     dim3 grid((M + BM - 1) / BM, (N + B_BN - 1) / B_BN, lanes);
     td_vmm_block<B><<<grid, B_THREADS, smem, s>>>(
         x, w, params, seed, out, M, N, K, n_chain, k_true, bits_w, vec,
-        w_stride);
+        w_stride, w_lanes);
   } else {
     const size_t smem = split_smem(n_chain);
     static size_t allowed = 0;
@@ -679,7 +684,7 @@ int launch(int route, cudaStream_t s, const int32_t* x, const int32_t* w,
               lanes);
     td_vmm_split<B><<<grid, S_THREADS, smem, s>>>(
         x, w, params, seed, scratch, counters, out, M, N, K, n_chain,
-        k_true, bits_w, vec, w_stride);
+        k_true, bits_w, vec, w_stride, w_lanes);
   }
   return (int)cudaGetLastError();
 }
@@ -688,7 +693,8 @@ int launch(int route, cudaStream_t s, const int32_t* x, const int32_t* w,
 
 // `lanes` lanes of x (M, K) int32 and w (K, N) int32 signed codes,
 // row-major, lane after lane (w's lane stride `w_stride` elements: K * N,
-// or 0 for one w shared by every lane); per lane params f32 [sigma, tdc_q]
+// or 0 for one w shared by every lane; lane l reads w number l % w_lanes,
+// and w_lanes divides lanes); per lane params f32 [sigma, tdc_q]
 // and seed int64 (low 32 bits used) in device memory; out (lanes, M, N)
 // f32.  Contraction positions >= k_true are masked, so K need not be a
 // multiple of n_chain.  route 0 is the block route; route 1 the split route
@@ -700,13 +706,15 @@ extern "C" int td_vmm_launch(const void* x, const void* w, const void* params,
                              const void* seed, void* out, void* scratch,
                              void* counters, int M, int N, int K, int n_chain,
                              int k_true, int bits_a, int bits_w, int route,
-                             int lanes, long long w_stride, void* stream) {
+                             int lanes, long long w_stride, int w_lanes,
+                             void* stream) {
   if (route != 0 && (route != 1 || M > S_MP || !scratch || !counters))
     return (int)cudaErrorInvalidValue;
   if (n_chain < 1 || bits_a < 1 || bits_a > 8 || bits_w < 1 || bits_w > 8)
     return (int)cudaErrorInvalidValue;
   if (lanes < 1 || lanes > 65535 || (w_stride != 0 &&
-                                     w_stride != (long long)K * N))
+                                     w_stride != (long long)K * N) ||
+      w_lanes < 1 || lanes % w_lanes != 0)
     return (int)cudaErrorInvalidValue;
   // 16-byte copies need every lane's rows 16-byte aligned: K and N
   // multiples of 4 make the lane strides M * K and K * N multiples of 4
@@ -724,7 +732,7 @@ extern "C" int td_vmm_launch(const void* x, const void* w, const void* params,
 #define TD_VMM_CASE(B)                                                      \
   case B:                                                                   \
     return launch<B>(route, s, xi, wi, pp, sp, sc, cn, op, M, N, K, n_chain, \
-                     k_true, bits_w, vec, lanes, w_stride);
+                     k_true, bits_w, vec, lanes, w_stride, w_lanes);
   switch (bits_a) {
     TD_VMM_CASE(1) TD_VMM_CASE(2) TD_VMM_CASE(3) TD_VMM_CASE(4)
     TD_VMM_CASE(5) TD_VMM_CASE(6) TD_VMM_CASE(7) TD_VMM_CASE(8)

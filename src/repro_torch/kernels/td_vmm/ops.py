@@ -91,7 +91,8 @@ def td_vmm(x_int: torch.Tensor, w_int: torch.Tensor, pol,
 def td_vmm_lanes(x_int: torch.Tensor, w_int: torch.Tensor, pol,
                  sigma: torch.Tensor, tdc_q: torch.Tensor,
                  seeds: torch.Tensor) -> torch.Tensor:
-    """x_int (P, ..., K) signed codes, w_int (K, N) shared or (P, K, N);
+    """x_int (P, ..., K) signed codes, w_int (K, N) shared, (P, K, N), or
+    (L, K, N) with L dividing P (lane p reads w_int[p % L]);
     ``sigma`` and ``tdc_q`` (P,) float tensors and ``seeds`` (P,) int64
     (derived uint32 seeds) on x's device; ``pol`` gives the widths and
     n_chain.  Returns (P, ..., N) f32: lane p is ``td_vmm_seeded`` of lane

@@ -30,10 +30,12 @@ runs `td_vmm_plain`; on CUDA tensors it launches the kernel or raises.
 
 The lane axis (the reference's kernel under ``jax.vmap``: a probe of the
 batched noise search, a head of TD attention): x (P, M, K) with w (K, N)
-shared by every lane or (P, K, N) one a lane, ``params`` (P, 2) and
-``seed`` (P,) return (P, M, N), still in one launch (lanes on the grid's
-z axis).  Every lane keeps its own noise index ((b*n_seg+seg)*M+row)*N+col
-over its own M, so a lane equals a single-lane call with that lane's
+shared by every lane, (P, K, N) one a lane, or (L, K, N) with L dividing P
+(lane p reads w[p % L]: the MoE's P x E expert lanes under the search read
+the E experts' codes with no copy a probe), ``params`` (P, 2) and ``seed``
+(P,) return (P, M, N), still in one launch (lanes on the grid's z axis).
+Every lane keeps its own noise index ((b*n_seg+seg)*M+row)*N+col over its
+own M, so a lane equals a single-lane call with that lane's
 operands bit for bit, noise included.  The route is planned from the
 per-lane M.  The plain versions take lanes by looping the single-lane
 function.
@@ -80,7 +82,7 @@ def _kernel():
     if _fn is None:
         fn = build.load("td_vmm").td_vmm_launch
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
-            + [ctypes.c_longlong, ctypes.c_void_p]
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -101,9 +103,11 @@ def _check(x, w, params, seed, bits_a, bits_w, k_true):
     lanes = x.shape[0] if x.dim() == 3 else 1
     if (x.dim() not in (2, 3) or w.dim() not in (2, x.dim())
             or x.shape[-1] != w.shape[-2]
-            or (w.dim() == 3 and w.shape[0] != lanes)):
+            or (w.dim() == 3 and w.shape[0] != lanes
+                and (w.shape[0] < 1 or lanes % w.shape[0]))):
         raise ValueError(f"td_vmm wants x (M, K) and w (K, N), or x (P, M, "
-                         f"K) and w (K, N) or (P, K, N), got "
+                         f"K) and w (K, N) or (L, K, N) with L dividing P, "
+                         f"got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if x.dtype != torch.int32 or w.dtype != torch.int32:
         raise TypeError(f"td_vmm wants int32 codes, got {x.dtype}, {w.dtype}")
@@ -129,7 +133,7 @@ def td_vmm(x_int: torch.Tensor, w_int: torch.Tensor, params: torch.Tensor,
            seed: torch.Tensor, *, bits_a: int, bits_w: int, n_chain: int,
            k_true: int | None = None) -> torch.Tensor:
     """Noisy bit-serial TD product of signed codes, (M, N) float32, or
-    (P, M, N) for P lanes."""
+    (P, M, N) for P lanes; with w (L, K, N), lane p reads w[p % L]."""
     global launches
     if k_true is None:
         k_true = x_int.shape[-1]
@@ -162,6 +166,7 @@ def td_vmm(x_int: torch.Tensor, w_int: torch.Tensor, params: torch.Tensor,
                        m, n, k, n_chain, k_true, bits_a, bits_w,
                        int(plan.route == "split"), lanes,
                        k * n if w.dim() == 3 else 0,
+                       w.shape[0] if w.dim() == 3 else 1,
                        build.stream_ptr(x.device))
         build.check(rc, "td_vmm")
         launches += 1
@@ -176,7 +181,8 @@ def _by_lane(fn, x_int, w_int, params, seed, **kw) -> torch.Tensor:
     params = params.reshape(-1, 2)
     seed = seed.reshape(-1)
     return torch.stack([
-        fn(x_int[p], w_int[p] if w_int.dim() == 3 else w_int, params[p],
+        fn(x_int[p], w_int[p % w_int.shape[0]] if w_int.dim() == 3
+           else w_int, params[p],
            seed[p:p + 1], **kw) for p in range(x_int.shape[0])])
 
 

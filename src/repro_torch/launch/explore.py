@@ -3,7 +3,7 @@
 `repro/launch/explore.py`).
 
     PYTHONPATH=src python -m repro_torch.launch.explore --port 7749 \
-        --preload vdd-opt:ss
+        --preload vdd-opt:ss [--cache-dir DIR]
 
 One long-lived process owns the sweeps (on the card unless ``--device``
 says otherwise) and the grid cache; any number of short-lived clients ask
@@ -21,9 +21,11 @@ Protocol (request ``op`` field):
     "minimize_over": ["vdd"], "result": "summary"}``; ``result`` is
     ``summary``, ``winners`` (the winning-domain map) or ``crossovers``.
 ``refine``
-    Answers ``{"ok": false}`` with the `NotImplementedError` of
-    `ExplorerService.refine`: incremental refinement, the on-disk store
-    (``--cache-dir``) and the corner fan-out are ROADMAP.md §1, item 8.
+    ``{"op": "refine", "scenario": "vdd-opt", "corner": "tt", "target":
+    4096, ...}`` (any of ``refine_axis``, ``lo``, ``hi``, ``target``,
+    ``coarse``, ``tau``, ``max_axis_values``, ``max_levels``,
+    ``metric``): `ExplorerService.refine`'s levels, axis sizes and point
+    counts, and ``vdd_opt`` when the reduced grid has at most 256 points.
 ``resolve``
     Per-layer specs in, solved per-layer (R, q, sigma_chain, Vdd)
     policies out, through the same memoized solves `tdsim.policy` makes in
@@ -99,6 +101,21 @@ def _sweep_payload(svc: explorer_mod.ExplorerService, req: dict) -> dict:
     return out
 
 
+def _refine_payload(svc: explorer_mod.ExplorerService, req: dict) -> dict:
+    kw = {k: req[k] for k in ("refine_axis", "lo", "hi", "target", "coarse",
+                              "tau", "max_axis_values", "max_levels",
+                              "metric") if k in req}
+    res = svc.refine(req.get("scenario", "vdd-opt"), req.get("corner"), **kw)
+    out = {"ok": True, "op": "refine", "refine_axis": res.refine_axis,
+           "levels": res.levels, "dense_size": len(res.dense_values),
+           "evaluated_axis_values": len(res.evaluated_values),
+           "points_evaluated": res.points_evaluated,
+           "effective_points": res.effective_points}
+    if res.grid.vdd_opt is not None and res.grid.vdd_opt.size <= 256:
+        out["vdd_opt"] = res.grid.vdd_opt.ravel().tolist()
+    return out
+
+
 def _policy_json(p) -> dict:
     return {"bits_a": p.bits_a, "bits_w": p.bits_w, "n_chain": p.n_chain,
             "redundancy": p.redundancy, "tdc_q": p.tdc_q,
@@ -155,9 +172,8 @@ def dispatch(svc: explorer_mod.ExplorerService, req: dict,
                     "cache_dir": svc.cache_dir}
         if op == "sweep":
             return _sweep_payload(svc, req)
-        if op == "refine":      # raises: not ported (ROADMAP §1, item 8)
-            return svc.refine(req.get("scenario", "vdd-opt"),
-                              req.get("corner"))
+        if op == "refine":
+            return _refine_payload(svc, req)
         if op == "resolve":
             return _resolve_payload(svc, req)
         if op == "shutdown":
@@ -326,12 +342,14 @@ def main(argv=None) -> None:
                     metavar="SCENARIO[:CORNER]",
                     help="sweep these before accepting queries (repeatable)")
     ap.add_argument("--cache-dir", default=None,
-                    help="the reference's on-disk store; not yet ported")
+                    help="persistent sweep cache (default: "
+                         "$REPRO_EXPLORER_CACHE_DIR, else memory only)")
     args = ap.parse_args(argv)
 
     from repro_torch import device as device_mod
+    cache_dir = args.cache_dir or os.environ.get("REPRO_EXPLORER_CACHE_DIR")
     svc = explorer_mod.ExplorerService(
-        cache_dir=args.cache_dir, device=device_mod.resolve(args.device))
+        cache_dir=cache_dir or None, device=device_mod.resolve(args.device))
     explorer_mod.set_service(svc)
     for spec in args.preload:
         scenario, _, corner = spec.partition(":")
@@ -340,7 +358,8 @@ def main(argv=None) -> None:
               f"in {info['elapsed_ms']:.0f} ms")
     server = ExplorerServer(svc, args.host, args.port)
     print(f"explorer service listening on "
-          f"{server.address[0]}:{server.address[1]} (device {svc.device})")
+          f"{server.address[0]}:{server.address[1]} (device {svc.device}, "
+          f"cache_dir={svc.cache_dir or 'memory-only'})")
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -6,6 +6,9 @@ pairs into a fixed per-expert capacity Cap = ceil(T k cf / E) by a stable
 sort (overflow dropped), runs the experts as E lanes of one batched matmul
 a projection (`td_linear.td_matmul_experts`: one td_vmm launch over the E
 lanes in td mode) and combines the slots weighted by router probability.
+`moe_ffn_lanes` runs P probes of the batched noise search at once: each
+probe routes and slots its own tokens, and a projection's P x E expert
+products are one launch.
 The reference's sharding hints (`maybe_constrain`) have no counterpart on
 one card.
 """
@@ -94,33 +97,21 @@ def _div(a: torch.Tensor, n: int) -> torch.Tensor:
     return a / torch.full((), n, dtype=a.dtype, device=a.device)
 
 
-def moe_ffn(params: dict, x: torch.Tensor, moe: MoECfg, pol, key=None
-            ) -> tuple[torch.Tensor, dict]:
-    """x (B, S, d) -> (y, aux): aux holds the Switch load-balance loss
-    ``moe_aux``, the router z-loss ``moe_z`` and the dropped share of
-    (token, expert) pairs ``moe_dropped``, 0-d f32.
-
-    Capacity couples the rows of a batch: every token routes and takes
-    slots, padded ones too, and a token past its expert's capacity is
-    dropped, as in the reference.  The combine is deterministic: each
-    token sums its kept slots' contributions in slot order (expert id),
-    the reference's scatter-add order, in the experts' dtype, without
-    atomics; the empty slots (token 0 at weight 0) add exact zeros and are
-    skipped."""
-    b, s, d = x.shape
-    t = b * s
+def _route(params: dict, xt: torch.Tensor, moe: MoECfg) -> dict:
+    """Routing and sort-based slotting of one batch's T tokens xt (T, d):
+    the router's logits and probabilities, each token's top-k experts and
+    the (token, expert) pairs slotted into E x Cap slots (Cap from this T),
+    a stable sort by expert grouping them, overflow dropped."""
+    t = xt.shape[0]
     e, k = moe.num_experts, moe.top_k
     cap = _capacity(t, moe)
-    dev = x.device
-    xt = x.reshape(t, d)
-
+    dev = xt.device
     logits = (xt @ params["router"]["w"]).to(torch.float32)       # (T, E)
     ex = torch.exp(logits - logits.amax(-1, keepdim=True).detach())
     probs = ex / ex.sum(-1, keepdim=True)
     top_p, top_e = top_k(probs, k)                                # (T, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
 
-    # ---- sort-based slotting ---------------------------------------------
     flat_e = top_e.reshape(-1)                                    # (T*k,)
     sorted_e, order = torch.sort(flat_e, stable=True)
     group_start = torch.searchsorted(sorted_e,
@@ -137,7 +128,67 @@ def moe_ffn(params: dict, x: torch.Tensor, moe: MoECfg, pol, key=None
     slot_weight = torch.zeros(e * cap + 1, dtype=torch.float32,
                               device=dev).scatter_(
         0, slot, torch.where(keep, weight_of, 0.0))[:-1]
-    xs = xt[slot_token].reshape(e, cap, d)                        # (E, C, d)
+    return {"cap": cap, "logits": logits, "probs": probs, "flat_e": flat_e,
+            "keep": keep, "slot": slot, "order": order,
+            "slot_token": slot_token, "slot_weight": slot_weight}
+
+
+def _combine(r: dict, ys: torch.Tensor, moe: MoECfg) -> torch.Tensor:
+    """(T, d) from the experts' (E, Cap, d) slots: each token sums its kept
+    slots' contributions, weighted by router probability, in slot order."""
+    e, k, cap = moe.num_experts, moe.top_k, r["cap"]
+    t, d = r["keep"].shape[0] // k, ys.shape[-1]
+    ys_flat = ys.reshape(e * cap, d) * r["slot_weight"][:, None].to(ys.dtype)
+    slot = r["slot"]
+    pair_slot = torch.empty_like(slot).scatter_(0, r["order"], slot)
+    pair_slot = torch.sort(pair_slot.reshape(t, k), dim=-1).values
+    kept = pair_slot < e * cap
+    contrib = ys_flat[torch.clamp(pair_slot, max=e * cap - 1)]    # (T, k, d)
+    y = torch.zeros((t, d), dtype=ys.dtype, device=ys.device)
+    for j in range(k):
+        y = torch.where(kept[:, j, None], y + contrib[:, j], y)
+    return y
+
+
+def _aux(r: dict, moe: MoECfg) -> dict:
+    """The Switch load-balance loss, the router z-loss and the dropped
+    share of (token, expert) pairs, 0-d f32."""
+    e, k = moe.num_experts, moe.top_k
+    probs, flat_e, keep = r["probs"], r["flat_e"], r["keep"]
+    t = probs.shape[0]
+    me = _div(probs.sum(0), t)                                    # (E,)
+    # counts (exact in f32) without bincount, which reads its size on the
+    # host
+    counts = torch.zeros(e, dtype=torch.float32,
+                         device=probs.device).index_add_(
+        0, flat_e, torch.ones(t * k, dtype=torch.float32,
+                              device=probs.device))
+    ce = _div(counts, t * k)
+    aux = moe.aux_coef * e * (me * ce).sum()
+    zloss = moe.router_z_coef * _div(
+        (torch.logsumexp(r["logits"], dim=-1) ** 2).sum(), t)
+    frac_dropped = 1.0 - _div(keep.to(torch.float32).sum(), t * k)
+    return {"moe_aux": aux, "moe_z": zloss, "moe_dropped": frac_dropped}
+
+
+def moe_ffn(params: dict, x: torch.Tensor, moe: MoECfg, pol, key=None
+            ) -> tuple[torch.Tensor, dict]:
+    """x (B, S, d) -> (y, aux): aux holds the Switch load-balance loss
+    ``moe_aux``, the router z-loss ``moe_z`` and the dropped share of
+    (token, expert) pairs ``moe_dropped``, 0-d f32.
+
+    Capacity couples the rows of a batch: every token routes and takes
+    slots, padded ones too, and a token past its expert's capacity is
+    dropped, as in the reference.  The combine is deterministic: each
+    token sums its kept slots' contributions in slot order (expert id),
+    the reference's scatter-add order, in the experts' dtype, without
+    atomics; the empty slots (token 0 at weight 0) add exact zeros and are
+    skipped."""
+    b, s, d = x.shape
+    e = moe.num_experts
+    xt = x.reshape(b * s, d)
+    r = _route(params, xt, moe)
+    xs = xt[r["slot_token"]].reshape(e, r["cap"], d)              # (E, C, d)
 
     # ---- experts: lanes of one matmul a projection ------------------------
     def mm(h, nm, j):
@@ -147,27 +198,41 @@ def moe_ffn(params: dict, x: torch.Tensor, moe: MoECfg, pol, key=None
 
     h = silu(mm(xs, "wg", 0)) * mm(xs, "wi", 1)
     ys = mm(h, "wo", 2)                                           # (E, C, d)
+    y = _combine(r, ys, moe).reshape(b, s, d).to(x.dtype)
+    return y, _aux(r, moe)
 
-    # ---- combine: each token's slots in slot order ------------------------
-    ys_flat = ys.reshape(e * cap, d) * slot_weight[:, None].to(ys.dtype)
-    pair_slot = torch.empty_like(slot).scatter_(0, order, slot)
-    pair_slot = torch.sort(pair_slot.reshape(t, k), dim=-1).values
-    kept = pair_slot < e * cap
-    contrib = ys_flat[torch.clamp(pair_slot, max=e * cap - 1)]    # (T, k, d)
-    y = torch.zeros((t, d), dtype=ys.dtype, device=dev)
-    for j in range(k):
-        y = torch.where(kept[:, j, None], y + contrib[:, j], y)
-    y = y.reshape(b, s, d).to(x.dtype)
 
-    # ---- aux losses --------------------------------------------------------
-    me = _div(probs.sum(0), t)                                    # (E,)
-    # counts (exact in f32) without bincount, which reads its size on the
-    # host
-    counts = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
-        0, flat_e, torch.ones(t * k, dtype=torch.float32, device=dev))
-    ce = _div(counts, t * k)
-    aux = moe.aux_coef * e * (me * ce).sum()
-    zloss = moe.router_z_coef * _div(
-        (torch.logsumexp(logits, dim=-1) ** 2).sum(), t)
-    frac_dropped = 1.0 - _div(keep.to(torch.float32).sum(), t * k)
-    return y, {"moe_aux": aux, "moe_z": zloss, "moe_dropped": frac_dropped}
+def moe_ffn_lanes(params: dict, x: torch.Tensor, moe: MoECfg, pol,
+                  sigma: torch.Tensor, tdc_q: torch.Tensor,
+                  seeds: torch.Tensor) -> torch.Tensor:
+    """`moe_ffn` over P lanes folded into the batch, lane major (the
+    batched noise search's probes), forward only: x (P B, S, d), lane p at
+    ``pol`` with its ``sigma[p]`` and ``tdc_q[p]``.  ``seeds`` (P, 3, E)
+    int64 are the experts' derived seeds of each projection (wg, wi, wo),
+    lane p's ``derive_seed(split(fold_key(key_p, j), E)[e])`` for its FFN
+    key key_p.  Returns y (P B, S, d); the aux losses are not computed.
+
+    Each lane routes and slots its own B S tokens, so its capacity is a
+    single pass's (folding the lanes into T would change which tokens are
+    dropped); the P x E expert products of a projection are one td_vmm
+    launch (`td_linear.td_matmul_expert_lanes`); each lane combines its
+    own slots.  Lane p equals `moe_ffn` of lane p's rows at its policy and
+    key bit for bit."""
+    p_lanes = sigma.shape[0]
+    pb, s, d = x.shape
+    e = moe.num_experts
+    xt = x.reshape(p_lanes, (pb // p_lanes) * s, d)
+    routes = [_route(params, xt[p], moe) for p in range(p_lanes)]
+    cap = routes[0]["cap"]
+    xs = torch.stack([xt[p][r["slot_token"]].reshape(e, cap, d)
+                      for p, r in enumerate(routes)])             # (P,E,C,d)
+
+    def mm(h, nm, j):
+        return td_linear.td_matmul_expert_lanes(
+            h, params[nm], params.get("s_a"), params.get(f"s_{nm}"), pol,
+            sigma, tdc_q, seeds[:, j])
+
+    h = silu(mm(xs, "wg", 0)) * mm(xs, "wi", 1)
+    ys = mm(h, "wo", 2)                                           # (P,E,C,d)
+    y = torch.stack([_combine(r, ys[p], moe) for p, r in enumerate(routes)])
+    return y.reshape(pb, s, d).to(x.dtype)

@@ -33,7 +33,10 @@ per-layer sweep of `benchmarks/bench_noise_tolerance._lm_eval_fns`) in one
 pass: the lanes fold into the batch, lane major, and every td dense is one
 td_vmm launch over the P lanes with the shared weight; attention runs on
 flash_attn over the folded batch.  The two differ only in the ``dense``
-callback they hand `_walk`.  It runs the dense attention decoders only.
+(and ``moe``) callbacks they hand `_walk`.  It runs every decoder family:
+the MoE routes each lane apart and runs its P x E expert products as
+lanes of one launch, the scans start each folded row at zero, and the
+shared block runs at the top-level policy.
 """
 from __future__ import annotations
 
@@ -43,9 +46,11 @@ from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import device as device_mod
+from repro_torch import prng
 from repro_torch.configs.base import ModelCfg
 from repro_torch.kernels.td_vmm import ref as td_ref
 from repro_torch.models import attention, common, ffn, mamba2, rwkv6
+from repro_torch.tdsim import policy as td_policy
 from repro_torch.tdsim import td_linear
 
 
@@ -133,15 +138,10 @@ def init_params(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
     return params
 
 
-# a dense attention layer's denses by key path (2i + part, j): the mixer's
-# wq, wk, wv, wo (part 0), the SwiGLU FFN's wg, wi, wo (part 1)
-_DENSES = ((0, 4), (1, 3))
-
-
 def _layer_apply(lp: dict, shared: dict | None, x: torch.Tensor,
                  cfg: ModelCfg, dense, i: int, positions: torch.Tensor,
-                 cache: dict | None, key, attn_pols=None, pol=None
-                 ) -> tuple[torch.Tensor, dict | None, dict]:
+                 cache: dict | None, key, attn_pols=None, pol=None,
+                 moe=None) -> tuple[torch.Tensor, dict | None, dict]:
     mixer = cfg.mixer_at(i)
     # the shared block's denses run at the top-level policy: layer None
     at = None if mixer == "shared_attn" else i
@@ -172,8 +172,12 @@ def _layer_apply(lp: dict, shared: dict | None, x: torch.Tensor,
         return x, new_cache, {}
     h = common.rmsnorm(lp["ln2"], x, cfg.rms_eps)
     if fk == "moe":
-        y, aux = ffn.moe_ffn(lp["moe"], h, cfg.moe, common.pol_at(pol, i),
-                             common.fold_key(key, 2 * i + 1))
+        if moe is None:
+            y, aux = ffn.moe_ffn(lp["moe"], h, cfg.moe,
+                                 common.pol_at(pol, i),
+                                 common.fold_key(key, 2 * i + 1))
+        else:
+            y, aux = moe(i, lp["moe"], h), {}
         return x + y, new_cache, aux
     if fk == "swiglu":
         return x + ffn.swiglu(lp["mlp"], h, None, dense=mlp), new_cache, {}
@@ -206,7 +210,7 @@ def _dots_contexts():
 def _walk(params: dict, x: torch.Tensor, cfg: ModelCfg, dense,
           positions: torch.Tensor, key=None, attn_pols=None,
           caches: list | None = None, remat: str = "none",
-          layers: range | None = None, pol=None
+          layers: range | None = None, pol=None, moe=None
           ) -> tuple[torch.Tensor, list, dict]:
     """The decoder's layers in order (``layers``: a range of them, all by
     default), shared by `forward` and `forward_lanes`.  ``dense(i, fold,
@@ -215,17 +219,18 @@ def _walk(params: dict, x: torch.Tensor, cfg: ModelCfg, dense,
     is the dense's key path from the forward's key, ``(2i, j)`` for the
     mixer's j-th dense and ``(2i + 1, j)`` for the FFN's.  ``key`` seeds
     TD attention (``fold_key(key, 2i, 4)``) and the MoE's experts, which
-    run at ``pol_at(pol, i)`` (`ffn.moe_ffn`).  ``remat``: "full"
-    recomputes each layer in the backward from its input, "dots" keeps
-    its unbatched matmuls' results and recomputes the rest.  Returns (x,
-    the layers' new caches, None where a layer has no cache, the layers'
-    aux losses summed in layer order)."""
+    run at ``pol_at(pol, i)`` (`ffn.moe_ffn`); ``moe(i, p, h)``, when
+    given, computes layer i's MoE FFN in their place (no aux losses).
+    ``remat``: "full" recomputes each layer in the backward from its
+    input, "dots" keeps its unbatched matmuls' results and recomputes the
+    rest.  Returns (x, the layers' new caches, None where a layer has no
+    cache, the layers' aux losses summed in layer order)."""
     new_caches: list = [None] * cfg.n_layers
     aux_all: dict = {}
     for i in (range(cfg.n_layers) if layers is None else layers):
         cache = caches[i] if caches is not None else None
         args = (params["layers"][i], params.get("shared_attn"), x, cfg,
-                dense, i, positions, cache, key, attn_pols, pol)
+                dense, i, positions, cache, key, attn_pols, pol, moe)
         if remat == "none":
             x, new_caches[i], aux = _layer_apply(*args)
         else:
@@ -307,63 +312,107 @@ def forward(params: dict, batch: dict, cfg: ModelCfg, pol,
     return logits, (new_caches if caches is not None else None), aux
 
 
+# the lanes' seeded denses of a layer by kind, counted along their key paths
+# (2i, j) (the mixer's) and (2i + 1, j) (the FFN's); the MoE's experts are
+# seeded apart, E a projection, and the shared block (at the top-level
+# policy) runs lane by lane with each lane's key
+_MIXER_DENSES = {"attn": 4, "shared_attn": 0, "mamba2": 2, "rwkv6": 5}
+_FFN_DENSES = {"swiglu": 3, "rwkv_cm": 3, "moe": 0, "none": 0}
+
+
 @torch.no_grad()
 def forward_lanes(params: dict, batch: dict, cfg: ModelCfg, base_pol,
                   sigma: torch.Tensor, keys, top_pol) -> torch.Tensor:
-    """P probes in one pass: ``batch`` {"tokens": (B, S)} shared, ``sigma``
+    """P probes in one pass, on every decoder family: ``batch``
+    {"tokens": (B, S)} (and a stub frontend's "embeds") shared, ``sigma``
     (P, n_layers) each probe's noise std per layer (on the tokens'
     device), ``keys`` P raw PRNG keys.  Layer i of lane p runs
-    ``base_pol`` at ``sigma[p, i]``, lm_head runs ``top_pol``.  Returns
-    (P, B, S, vocab) logits; lane p equals ``forward(params, batch, cfg,
-    NetworkPolicy(layers=(base_pol.replace(sigma_chain=sigma[p, i]),
-    ...), top=top_pol), key=keys[p])`` bit for bit.
+    ``base_pol`` at ``sigma[p, i]``; the embeddings' adapter, the shared
+    attention block (zamba2) and lm_head run ``top_pol``.  Returns (P, B,
+    S', vocab) logits (S' counts a frontend's positions first); lane p
+    equals ``forward(params, batch, cfg, NetworkPolicy(layers=(base_pol.
+    replace(sigma_chain=sigma[p, i]), ...), top=top_pol), key=keys[p])``
+    bit for bit.
 
     The layers before the first one where any lane's sigma is nonzero run
-    once for all lanes (at sigma 0 the noise term is exactly zero); from
-    there the lanes fold into the batch.  lm_head runs lane by lane, so
-    each lane's matmul has the single pass's shape.  Reading the first
-    noisy layer costs one copy of ``sigma`` to the host a call, and the
-    lanes' seeds of every dense one copy to the device."""
+    once for all lanes (at sigma 0 the noise term is exactly zero; a noisy
+    ``top_pol`` ends that prefix before the first shared site); from there
+    the lanes fold into the batch, lane major.  Every td dense of a layer
+    is one td_vmm launch over the P lanes with the shared weight; the
+    MoE routes and slots each lane's tokens apart (its capacity is a
+    single pass's) and runs the P x E expert products of a projection in
+    one launch (`ffn.moe_ffn_lanes`); mamba2's and rwkv6's scans start
+    every folded row at a zero state, as `forward` does.  The shared
+    block's denses run at ``top_pol`` and lm_head, lane by lane, each in a
+    single pass's shapes with its lane's key.  Reading the first noisy
+    layer costs one copy of ``sigma`` to the host a call, and the lanes'
+    seeds of every dense one copy to the device."""
     _check_supported(cfg)
-    if any(cfg.mixer_at(i) != "attn" or _ffn_kind(cfg, i) != "swiglu"
-           for i in range(cfg.n_layers)):
-        raise NotImplementedError(
-            f"{cfg.name}: forward_lanes runs dense attention decoders only; "
-            "the MoE, mamba2, rwkv6 and shared-attention families are not "
-            "yet ported (ROADMAP.md §1, item 7)")
     p_lanes, n_layers = len(keys), cfg.n_layers
     if tuple(sigma.shape) != (p_lanes, n_layers):
         raise ValueError(f"sigma {tuple(sigma.shape)} for {p_lanes} keys "
                          f"and {n_layers} layers")
     noisy = (sigma != 0).any(0).tolist()
     first = noisy.index(True) if any(noisy) else n_layers
-    x = common.embed(params["embed"], batch["tokens"])
+    if top_pol.mode == "td" and float(top_pol.sigma_chain) != 0:
+        first = min([first] + [i for i in range(n_layers)
+                               if cfg.mixer_at(i) == "shared_attn"])
+    x = _embed(params, batch, cfg, top_pol)
     b, s, d = x.shape
     dev = x.device
     positions = torch.arange(s, device=dev)
-    x, _, _ = _walk(params, x, cfg,
-                    _policy_dense(base_pol.replace(sigma_chain=0.0), None),
-                    positions, layers=range(first))
-    # the seeds of every lane dense, a column each
+    clean = td_policy.NetworkPolicy(
+        layers=(base_pol.replace(sigma_chain=0.0),) * n_layers, top=top_pol)
+    x, _, _ = _walk(params, x, cfg, _policy_dense(clean, None), positions,
+                    layers=range(first), pol=clean)
+
+    # the seeds of every lane dense, a column each, then E a projection of
+    # each MoE layer's experts
     folds = [(2 * i + part, j) for i in range(first, n_layers)
-             for part, n_dense in _DENSES for j in range(n_dense)]
+             for part, n_dense in ((0, _MIXER_DENSES[cfg.mixer_at(i)]),
+                                   (1, _FFN_DENSES[_ffn_kind(cfg, i)]))
+             for j in range(n_dense)]
     col = {f: c for c, f in enumerate(folds)}
-    seeds = torch.tensor([[td_ref.derive_seed(common.fold_key(k, *f))
-                           for f in folds] for k in keys],
-                         dtype=torch.int64, device=dev)
+    moe_layers = [i for i in range(first, n_layers)
+                  if _ffn_kind(cfg, i) == "moe"]
+    n_exp = cfg.moe.num_experts if moe_layers else 0
+    moe_col = {i: len(folds) + 3 * n_exp * c
+               for c, i in enumerate(moe_layers)}
+
+    def lane_seeds(k) -> list[int]:
+        row = [td_ref.derive_seed(common.fold_key(k, *f)) for f in folds]
+        for i in moe_layers:
+            for j in range(3):
+                row += [td_ref.derive_seed(ke) for ke in prng.split(
+                    common.fold_key(k, 2 * i + 1, j), n_exp)]
+        return row
+
+    seeds = torch.tensor([lane_seeds(k) for k in keys], dtype=torch.int64,
+                         device=dev)
     tdc_q = torch.full((p_lanes,), float(base_pol.tdc_q),
                        dtype=torch.float32, device=dev)
     sigma = sigma.to(torch.float32)
 
     def lane_dense(i, fold, p, h):
-        y = td_linear.linear_lanes(p, h.reshape(p_lanes, -1, h.shape[-1]),
-                                   base_pol, sigma[:, i], tdc_q,
-                                   seeds[:, col[fold]])
+        hl = h.reshape(p_lanes, -1, *h.shape[1:])
+        if i is None:
+            y = torch.stack([td_linear.linear(p, hl[q], top_pol,
+                                              common.fold_key(keys[q], *fold))
+                             for q in range(p_lanes)])
+        else:
+            y = td_linear.linear_lanes(p, hl, base_pol, sigma[:, i], tdc_q,
+                                       seeds[:, col[fold]])
         return y.reshape(*h.shape[:-1], y.shape[-1])
+
+    def lane_moe(i, p, h):
+        c = moe_col[i]
+        return ffn.moe_ffn_lanes(
+            p, h, cfg.moe, base_pol, sigma[:, i], tdc_q,
+            seeds[:, c:c + 3 * n_exp].reshape(p_lanes, 3, n_exp))
 
     x = x.expand(p_lanes, b, s, d).reshape(p_lanes * b, s, d)
     x, _, _ = _walk(params, x, cfg, lane_dense, positions,
-                    layers=range(first, n_layers))
+                    layers=range(first, n_layers), moe=lane_moe)
     x = x.reshape(p_lanes, b, s, d)
     return torch.stack([_head(params, x[p], cfg, top_pol, keys[p])
                         for p in range(p_lanes)])

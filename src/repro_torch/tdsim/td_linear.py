@@ -21,7 +21,8 @@ seed is ``derive_seed(key)``.  With ``key=None`` it is
 lane its own x, sigma, tdc_q and seed over one w (or one w a lane), in one
 td_vmm launch.  They are forward-only.  `td_matmul_experts` is the
 MoE's ``jax.vmap`` of ``td_matmul`` over its experts (one w a lane), with
-the lanes' STE backward (`_TDLanesSTE`).
+the lanes' STE backward (`_TDLanesSTE`); `td_matmul_expert_lanes` runs it
+for P probes at once (P x E lanes in one launch, forward only).
 """
 from __future__ import annotations
 
@@ -245,6 +246,33 @@ def td_matmul_experts(x: torch.Tensor, w: torch.Tensor, s_a, s_w,
     ops = td_ops.policy_params(pol, x.device)
     return _TDLanesSTE.apply(x, w, s_a, s_w, pol, ops[0].expand(e),
                              ops[1].expand(e), seeds)
+
+
+@torch.no_grad()
+def td_matmul_expert_lanes(x: torch.Tensor, w: torch.Tensor, s_a, s_w,
+                           pol: TDPolicy, sigma: torch.Tensor,
+                           tdc_q: torch.Tensor,
+                           seeds: torch.Tensor) -> torch.Tensor:
+    """`td_matmul_experts` over P lanes, forward only (the MoE under the
+    batched noise search): x (P, E, C, K) @ w (E, K, N) -> (P, E, C, N),
+    lane p at ``sigma[p]`` and ``tdc_q[p]`` (P,), expert e of lane p
+    seeded by ``seeds[p, e]`` (P, E) int64.  In td mode the P x E products
+    are one td_vmm launch, `td_codes_lanes` of x's codes over P x E lanes
+    against the (E, K, N) stack: lane (p, e) reads expert e's codes, which
+    are made once and not copied a probe.  The other modes have no noise;
+    they run `td_matmul_experts` lane by lane.  Lane p equals
+    `td_matmul_experts` of x[p] at its sigma, tdc_q and seeds bit for
+    bit."""
+    p_lanes, e = x.shape[:2]
+    if pol.mode != "td":
+        return torch.stack([td_matmul_experts(x[p], w, s_a, s_w, pol)
+                            for p in range(p_lanes)])
+    x_int = lsq.lsq_quantize_int(x, s_a, pol.bits_a, signed=True)
+    y = td_codes_lanes(x_int.reshape(p_lanes * e, *x.shape[2:]), w, s_a, s_w,
+                       pol, sigma.repeat_interleave(e),
+                       tdc_q.repeat_interleave(e), seeds.reshape(-1),
+                       torch.promote_types(x.dtype, w.dtype))
+    return y.reshape(p_lanes, e, *y.shape[1:])
 
 
 def linear(params: dict, x: torch.Tensor, pol: TDPolicy,

@@ -211,10 +211,11 @@ def test_explorer_client_dead_server_then_own_server():
         assert pong["ok"] and "vdd-opt" in pong["scenarios"]
         stats = explore.request({"op": "stats"}, host=host, port=port)
         assert stats["ok"] and stats["stats"]["td_queries"] >= 1
-        ref = explore.request({"op": "refine", "scenario": "edge"},
-                              host=host, port=port)
-        assert not ref["ok"] and "NotImplementedError" in ref["error"]
-        assert "item 8" in ref["error"]
+        ref = explore.request({"op": "refine", "scenario": "edge",
+                               "target": 64, "coarse": 5,
+                               "max_axis_values": 16}, host=host, port=port)
+        assert ref["ok"] and ref["dense_size"] == 64
+        assert ref["evaluated_axis_values"] <= 16
         assert not explore.request({"op": "nope"}, host=host,
                                    port=port)["ok"]
         assert explore.request({"op": "shutdown"}, host=host,

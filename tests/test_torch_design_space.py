@@ -473,14 +473,18 @@ def test_explorer_cache_key_differs_from_reference_and_is_stable():
         lib=ttechlib.DEFAULT_LIB.at_corner(tscenario.CORNERS["ss"]), **kw)
 
 
-def test_explorer_unported_options_raise_and_default_is_cuda(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texplorer.ExplorerService(cache_dir="somewhere")
-    svc = texplorer.ExplorerService(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        svc.refine("edge")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        svc.sweep_scenarios("edge", parallel=True)
+def test_explorer_unported_options_raise_and_default_is_cuda(monkeypatch,
+                                                            tmp_path):
+    """The disk store, refine and the fan-out are ported (their parity is
+    `tests/test_torch_explorer_store.py`): bad options raise ValueError;
+    the default device is CUDA, which raises here."""
+    svc = texplorer.ExplorerService(cache_dir=str(tmp_path / "store"),
+                                    device="cpu")
+    assert svc.cache_dir == str(tmp_path / "store")
+    with pytest.raises(ValueError, match="refine"):
+        svc.refine("edge", refine_axis="m")
+    with pytest.raises(ValueError, match="hi > lo"):
+        svc.refine("edge", lo=0.8, hi=0.8)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         texplorer.ExplorerService().sweep("paper-exact")

@@ -116,8 +116,3 @@ def test_serve_and_train_clis_on_cpu(capsys):
                           "--device", "cpu"])
     assert len(losses) == 1 and np.all(np.isfinite(losses))
     assert "[train] done." in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttransformer.forward_lanes(
-            {}, {"tokens": torch.zeros((1, 2), dtype=torch.int64)},
-            arch.model, TPolicy(mode="td"), torch.zeros((1, 2)), [(0, 0)],
-            TPolicy(mode="td"))

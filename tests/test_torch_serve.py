@@ -143,5 +143,5 @@ def test_run_and_cli_on_cpu(capsys):
                        "cpu", "--streams", "2", "--capacity", "2",
                        "--prompt-len", "4", "--gen", "3"])
     assert out["requests"] == 2 and "adaptations" in out
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcfgs.get("dbrx-132b")
+    with pytest.raises(KeyError):
+        tcfgs.get("no-such-arch")

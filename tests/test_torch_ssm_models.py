@@ -14,8 +14,8 @@ converted init (`torch_ssm_parity`), float32 compute, the reference under
 * noisy td (sigma 1.5): the noise's mean and std over 4 keys within 10%
   of the reference's;
 * `matmul_shapes` at the full and smoke configs equal to the reference's
-  ledger; the converter's checks and round trip; the scheduler's and
-  `forward_lanes`'s refusals.
+  ledger; the converter's checks and round trip; the scheduler's
+  refusal, and a clean `forward_lanes` lane equal to `forward`.
 """
 import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import dataclasses
@@ -179,14 +179,19 @@ def test_converter_checks_and_round_trip(model):
 
 def test_scheduler_and_forward_lanes_refuse(model):
     """Both packages' engines refuse a non-attention mixer before any
-    work; the port's `forward_lanes` refuses the family (ROADMAP §1)."""
+    work; the port's `forward_lanes` runs the family (each lane equal to
+    its single forward bit for bit: `tests/test_torch_lm_sweep_families.py`
+    holds the noisy lanes)."""
     name, _, tp = model
     for engine, cfgs in ((JEngine, jcfgs), (TEngine, tcfgs)):
         with pytest.raises(ValueError, match="pure-attention mixers"):
             engine(cfgs.get_smoke(name))
     cfg = tcfgs.get_smoke(name).model
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttr.forward_lanes(tp, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                          cfg, TPolicy(mode="td", n_chain=48),
-                          torch.zeros((2, cfg.n_layers)),
-                          [prng.key(0), prng.key(1)], TPolicy())
+    batch = {"tokens": torch.from_numpy(tokens(2, 4)).long()}
+    keys = [prng.key(0), prng.key(1)]
+    pol = TPolicy(mode="td", n_chain=48)
+    out = ttr.forward_lanes(tp, batch, cfg, pol,
+                            torch.zeros((2, cfg.n_layers)), keys, pol)
+    with torch.no_grad():
+        want = ttr.forward(tp, batch, cfg, pol, key=keys[1])[0]
+    assert torch.equal(out[1], want)

@@ -116,6 +116,31 @@ def test_lane_call_equals_single_lane_calls(shape, bits):
         assert torch.equal(split[i], one)
 
 
+@pytest.mark.parametrize("shape", LANE_SHAPES)
+def test_lane_call_with_fewer_w_than_lanes_equals_single_lane_calls(shape):
+    """w (L, K, N) for P = 2L lanes (the MoE's P x E expert lanes): lane p
+    reads w[p % L], noise included, on both routes; an L that does not
+    divide P is refused."""
+    _, m, k, n, n_chain = shape
+    p, n_w = 4, 2
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(_codes(rng, (p, m, k), 4))
+    w = torch.from_numpy(_codes(rng, (n_w, k, n), 4))
+    params = torch.tensor([[0.9, 1.0], [1.3, 2.0], [0.0, 1.0], [2.5, 3.0]])
+    seed = torch.tensor(SEEDS, dtype=torch.int64)
+    kw = dict(bits_a=4, bits_w=4, n_chain=n_chain)
+    got = tkern.td_vmm(x, w, params, seed, **kw)
+    plan = tkern.td_vmm_plan(m, k, n, n_chain, 4)
+    split = tkern.td_vmm_split_plain(x, w, params, seed, plan=plan, **kw)
+    for i in range(p):
+        one = tkern.td_vmm(x[i], w[i % n_w], params[i], seed[i:i + 1], **kw)
+        assert torch.equal(got[i], one)
+        assert torch.equal(split[i], one)
+    with pytest.raises(ValueError):
+        tkern.td_vmm(x, torch.zeros((3, k, n), dtype=torch.int32), params,
+                     seed, **kw)
+
+
 def test_td_matmul_lanes_equals_single_td_matmuls():
     """The lane matmul (quantize, one launch, dequantize) against one
     `td_matmul` a lane at that lane's sigma, tdc_q and seed."""

@@ -67,13 +67,14 @@ def use_reference_init(ja, monkeypatch):
 
 
 def serve_both(name: str, batch: int, prompt_len: int, gen: int,
-               monkeypatch, seed: int = 0):
+               monkeypatch, seed: int = 0, pair: tuple | None = None):
     """The port's `serve.run` and the reference's prefill and serve steps
     on the same parameters, prompts and frontend embeddings (bf16, as
     `serve.run` feeds them; none without a frontend), the reference's
     caches sized as the port's: ``(port tokens, reference tokens,
-    frontend positions)``."""
-    ja, ta = archs(name)
+    frontend positions)``.  ``pair`` (reference arch, port arch) replaces
+    `archs` (name)'s quant-mode pair."""
+    ja, ta = pair or archs(name)
     use_reference_init(ja, monkeypatch)
     cfg = ja.model
     ids = tserve.run(ta, batch, prompt_len, gen, seed=seed, device="cpu")
