@@ -113,7 +113,8 @@
    (`ssd_chunked`, `wkv6_scan`) timed alone at the prefill shapes
    (kernels a call, device time, event pair, host enqueue) beside the
    kernels of one prefill and one decode step, trained at the configs' 4
-   microbatches and remat full (2 td steps, 1 quant; not cut), the smoke
+   microbatches and remat full (2 td steps, 1 quant; zamba2 not cut,
+   rwkv6 cut to 8 of 24 layers: `SSM_TRAIN_LAYERS`), the smoke
    models on the card against the CPU, and the kernels at their shapes
    (td_vmm at mamba2's in_proj, N 8384, and both lm_heads, N 32000 and
    65536, bit for bit with noise; flash_attn and decode_gqa at D 64, g
@@ -190,6 +191,18 @@
    resume at step 4 with the fault-free losses, digests of a restored
    tree equal the saved ones; save and restore seconds and the free
    disk printed);
+   then the multi-device layer: `phase_mesh` (an NCCL group of one rank
+   and a (1, 1) `DeviceMesh`: the LM sweep's per-layer search with
+   ``mesh=`` bit for bit the unsharded one, noise included, its td_vmm
+   lane launches counted; qwen3-8b at its widths cut to 4 layers, td,
+   served plain and on the mesh through `serve.run` with its parameters
+   placed by `param_specs(serving=True)`, tokens and logits bit for bit,
+   launches, prefill and decode ms and host syncs a step; a checkpoint
+   restored onto the mesh's placements bit for bit) and `phase_dryrun`
+   (`python -m repro_torch.launch.dryrun` of dbrx-132b train_4k at 40
+   layers and of zamba2-1.2b and rwkv6-1.6b at long_500k on the (32, 8)
+   production mesh, three processes at once on the host's CPU, the card
+   hidden from them: each cell's modelled roofline, memory and wall);
 6. profiles a shorter serve run (plain, then with ``--td-attn td``, and
    counts each one's host syncs a step in an untraced rerun), a
    short scheduler run (4 requests, capacity 4) and a td train step under
@@ -207,6 +220,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -5269,6 +5283,9 @@ def phase_frontend(launches: dict, rows: list):
 # scans alone, training at the config's 4 microbatches and remat full.
 SSM = dict(long_prompt=4096, short_prompt=128, steps=4, td_steps=2,
            quant_steps=1)
+# training depth (None: not cut); rwkv6's is cut to 8 of 24 layers (its
+# per-token scan made its 3 steps at full depth 50-76 s of the run)
+SSM_TRAIN_LAYERS = {"zamba2": None, "rwkv6": 8}
 SSM_ARCHS = {"zamba2": "zamba2-1.2b", "rwkv6": "rwkv6-1.6b"}
 
 
@@ -5414,7 +5431,8 @@ def _scan_report(tag: str, arch) -> None:
 
 def _ssm_phase(tag: str, launches: dict, rows: list, checks) -> None:
     """One sub-quadratic model at its published widths and depth (not
-    cut), td (4/4, the port's solve), seeded bf16 weights: `serve.run` of
+    cut, but for rwkv6's training: `SSM_TRAIN_LAYERS`), td (4/4, the
+    port's solve), seeded bf16 weights: `serve.run` of
     SERVE's batch (launches and host syncs a step checked), the prefill
     and serve steps at B 1 x 128 and B 1 x 4096 prompt tokens with 4
     decode steps each (host syncs checked; decode ms against context),
@@ -5463,8 +5481,11 @@ def _ssm_phase(tag: str, launches: dict, rows: list, checks) -> None:
     _scan_report(tag, arch)
     lap("scans")
     for mode in ("td", "quant"):
-        r = _train_run(f"{tag}_train_{mode}", family_arch(name, mode),
-                       SSM[f"{mode}_steps"], launches)
+        keep = SSM_TRAIN_LAYERS[tag]
+        r = _train_run(f"{tag}_train_{mode}", family_arch(name, mode, keep),
+                       SSM[f"{mode}_steps"], launches,
+                       depth=("not cut" if keep is None
+                              else f"cut from {cfg.n_layers}"))
         print(f"[{tag}_train_{mode}] peak {r['peak']:.2f} GiB, step ms "
               f"{[round(t, 1) for t in r['step_ms']]}, losses "
               f"{r['losses']}")
@@ -5675,6 +5696,237 @@ def step_syncs(run, names=("prefill", "decode")) -> tuple[int, dict]:
     return calib, calls
 
 
+# ---------------------------------------------------------------------------
+# The multi-device layer: a (1, 1) mesh on the card, and the dry run
+# ---------------------------------------------------------------------------
+MESH = dict(arch="qwen3-8b", layers=4, batch=4, prompt_len=128, gen=16)
+DRYRUN_CELLS = [("dbrx-132b", "train_4k"), ("zamba2-1.2b", "long_500k"),
+                ("rwkv6-1.6b", "long_500k")]
+
+
+def _mesh_search(tag: str, mesh, launches: dict) -> None:
+    """LM_SWEEP's per-layer batched search on granite-8b cut to its layers
+    (`_lm_sweep_family`'s QAT and eval), unsharded and with ``mesh=``: the
+    two results bit for bit equal, noise included, and the same td_vmm
+    lane launches each."""
+    import numpy as np
+    import torch
+    import repro_torch.configs as cfgs
+    from repro_torch import prng
+    from repro_torch.core import noise_tolerance as nt
+    from repro_torch.models import transformer as tr
+    from repro_torch.tdsim.policy import TDPolicy, quant_policy
+
+    conf, dev = LM_SWEEP, "cuda"
+    cfg = cut_layers(cfgs.get("granite-8b").model, conf["layers"])
+    n_l = cfg.n_layers
+    key = prng.key(conf["seed"])
+    sigmas, reps, chunk = conf["sigmas"], conf["n_repeats"], conf["chunk"]
+    mods = kernel_modules()
+    tv = mods["td_vmm"]
+    _counts_reset(mods)
+    params, stream = _lm_qat(tag, f"granite-8b, {n_l} layers", cfg, conf,
+                             key, dev)
+    batch = _on(stream.batch(conf["eval_step"]), dev)
+    base = TDPolicy(mode="td", bits_a=4, bits_w=4, n_chain=cfg.d_model,
+                    sigma_chain=0.0, tdc_q=1)
+    pol_q = quant_policy(4, 4)
+
+    def layer_eval(sv, keys):
+        logits = tr.forward_lanes(params, batch, cfg, base, sv, keys, pol_q)
+        return (logits.argmax(-1) == batch["labels"]).float().mean((1, 2))
+
+    layer_eval(torch.ones(chunk, n_l, device=dev), prng.split(key, chunk))
+    res, walls, lane = {}, {}, {}
+    for name, m in (("unsharded", None), ("mesh", mesh)):
+        torch.cuda.synchronize()
+        n0 = tv.launches
+        t0 = time.perf_counter()
+        res[name] = nt.find_sigma_max_batched(
+            layer_eval, sigmas, key, n_layers=n_l, n_repeats=reps,
+            chunk_size=chunk, mesh=m, device=dev)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        lane[name] = tv.launches - n0
+    search = [(chunk, i) for i in range(n_l)]
+    want = sweep_expected(cfg, 0, search, 0)["td_vmm"]
+    same = all(np.array_equal(getattr(res["unsharded"], f),
+                              getattr(res["mesh"], f))
+               for f in ("rel_drop", "acc_clean", "sigma_max"))
+    print(f"[{tag}] per-layer search, {res['mesh'].n_evals} probes in "
+          f"chunks of {chunk}: unsharded {walls['unsharded']:.3f} s, "
+          f"mesh=(1, 1) {walls['mesh']:.3f} s; td_vmm lane launches "
+          f"{lane['unsharded']} / {lane['mesh']} (expected {want} each); "
+          f"equal bit for bit (rel_drop, acc_clean, sigma_max, noise on) "
+          f"{same}; sigma_max {np.round(res['mesh'].sigma_max, 4).tolist()}")
+    if not same or lane["mesh"] != want or lane["unsharded"] != want:
+        fail(f"{tag}: the mesh search differs from the unsharded one")
+    counts = {n: m.launches for n, m in mods.items()}
+    check_launches(tag, counts, sweep_expected(
+        cfg, conf["steps"], [(chunk, 0)] + search + search, 0))
+    launches[tag] = counts
+
+
+def _mesh_serve(tag: str, mesh, launches: dict) -> None:
+    """MESH's qwen3-8b in td mode served plain and on ``mesh`` through
+    `serve.run`: tokens and every step's logits bit for bit equal, each
+    run's launches counted (td_vmm, flash_attn and decode_gqa on local
+    shards on the mesh), prefill and decode ms and host syncs a step."""
+    import torch
+    from repro_torch.launch import serve
+    arch = family_arch(MESH["arch"], "td", MESH["layers"])
+    cfg = arch.model
+    if (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.vocab) != \
+            (4096, 32, 8, 151936):
+        fail(f"{tag}: qwen3-8b widths {cfg}")
+    mods = kernel_modules()
+    out, stats = {}, {}
+    b, p, g = MESH["batch"], MESH["prompt_len"], MESH["gen"]
+    for name, m in (("plain", None), ("mesh", mesh)):
+        _counts_reset(mods)
+        stats[name] = {"logits": []}
+
+        def run(m=m, name=name):
+            out[name] = serve.run(arch, b, p, g, seed=0,
+                                  stats=stats[name], mesh=m)
+        torch.cuda.synchronize()
+        calib, calls = step_syncs(run)
+        counts = {n: mm.launches for n, mm in mods.items()}
+        path = f"{tag}" if m is not None else f"{tag}_plain"
+        check_launches(path, counts, serve_expected(cfg, g - 1))
+        launches[path] = counts
+        st = stats[name]
+        print(f"[{tag}] {name}: prefill {st['prefill_ms']:.2f} ms, decode "
+              f"median {statistics.median(st['decode_ms']):.2f} ms/token "
+              f"(all {[round(t, 2) for t in st['decode_ms']]}); host syncs "
+              f"(calibration {calib}): prefill {calls['prefill']}, each "
+              f"decode step {calls['decode']}")
+        if calib < 1 or any(calls["prefill"] + calls["decode"]):
+            fail(f"{tag} {name}: a serve step waits for the device (or the "
+                 "sync counting does not work)")
+    same_ids = bool(torch.equal(out["plain"], out["mesh"]))
+    lg_p, lg_m = stats["plain"]["logits"], stats["mesh"]["logits"]
+    same_lg = len(lg_p) == len(lg_m) == g and all(
+        _bits_equal(x, y) for x, y in zip(lg_p, lg_m))
+    print(f"[{tag}] {cfg.name} td, {cfg.n_layers} of 36 layers, batch {b}, "
+          f"prompt {p}, gen {g} on mesh (data 1, model 1), parameters "
+          f"placed by param_specs(serving=True): tokens equal {same_ids}, "
+          f"logits of the prefill "
+          f"and {g - 1} decode steps equal bit for bit {same_lg}; "
+          f"tokens[0] {out['mesh'][0].tolist()}")
+    if not (same_ids and same_lg):
+        fail(f"{tag}: the mesh serve differs from the plain serve")
+
+
+def _mesh_restore(tag: str, mesh) -> None:
+    """A checkpoint of the smoke qwen3-8b's parameters (float32 and a
+    bfloat16 copy) restored onto the mesh's placements, bit for bit."""
+    import shutil
+    import torch
+    import repro_torch.configs as cfgs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import sharding
+    from repro_torch.models import get_api
+    from repro_torch.optim.adamw import tree_leaves_with_path
+    from repro_torch.tdsim.policy import PRECISE
+    cfg = cfgs.get_smoke("qwen3-8b").model
+    params = get_api(cfg)["init"](0, cfg, PRECISE, device="cuda")
+    tree = {"f32": params,
+            "bf16": {"embed": {"table": params["embed"]["table"].to(
+                torch.bfloat16)}}}
+    path = ROOT / "build" / "mesh_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        ckpt.save(str(path), 5, tree, async_write=False)
+        specs = sharding.param_specs(tree, mesh)
+        step, back, _ = ckpt.restore(str(path), tree, device="cuda",
+                                     shardings=specs, mesh=mesh)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    pairs = list(zip(tree_leaves_with_path(tree), tree_leaves_with_path(back)))
+    equal = all(_bits_equal(b.full_tensor(), a) and b.device_mesh is mesh
+                for (_, a), (_, b) in pairs)
+    print(f"[{tag}] checkpoint of {len(pairs)} leaves restored onto the "
+          f"mesh's placements (step {step}): bit for bit {equal}")
+    if step != 5 or not equal:
+        fail(f"{tag}: the restore onto placements differs")
+
+
+def phase_mesh(launches: dict):
+    """The multi-device layer on one card: an NCCL group of one rank
+    (`HashStore`, device_id cuda:0) and a (1, 1) `DeviceMesh`; the LM
+    sweep's search with ``mesh=`` (`_mesh_search`), qwen3-8b served on
+    the mesh (`_mesh_serve`) and a checkpoint restored onto placements
+    (`_mesh_restore`); the group destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+        print(f"[mesh] {mesh} over nccl, world size "
+              f"{dist.get_world_size()}")
+        t0 = time.monotonic()
+        _mesh_search("mesh_search", mesh, launches)
+        t1 = time.monotonic()
+        gc.collect()
+        torch.cuda.empty_cache()
+        _mesh_serve("mesh_serve", mesh, launches)
+        t2 = time.monotonic()
+        _mesh_restore("mesh_restore", mesh)
+        print(f"[mesh] walls: search {t1 - t0:.1f} s, serve (plain and "
+              f"mesh) {t2 - t1:.1f} s, restore {time.monotonic() - t2:.1f} s")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dryrun():
+    """`python -m repro_torch.launch.dryrun` on the (data 32, model 8)
+    production mesh for DRYRUN_CELLS, one process a cell, all at once, on
+    this host's CPU (the fake process group; no kernel runs, the card is
+    hidden from them).  Prints each cell's roofline (a model from the
+    H100's data-sheet rates, not a measurement) and its wall."""
+    out = ROOT / "build" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    procs = {}
+    t0 = time.monotonic()
+    try:
+        for arch, shape in DRYRUN_CELLS:
+            procs[(arch, shape)] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--out", str(out)], env=env,
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+        logs = {c: p.communicate(timeout=600)[0] for c, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (arch, shape), p in procs.items():
+        if p.returncode != 0:
+            fail(f"dryrun {arch} {shape} exit {p.returncode}:\n"
+                 f"{logs[(arch, shape)][-4000:]}")
+        res = json.loads((out / f"{arch}__{shape}__32x8.json").read_text())
+        rl, mem = res["roofline"], res["memory"]
+        print(f"[dryrun] {arch} {shape} on 32x8 (256 cards), "
+              f"{res['n_params']:.6g} params: modelled from H100 SXM "
+              f"data-sheet rates, not measured: dominant {rl['dominant']}, "
+              f"step_s {rl['step_s']:.6g} (compute {rl['compute_s']:.6g}, "
+              f"memory {rl['memory_s']:.6g}, collective "
+              f"{rl['collective_s']:.6g}), mfu {rl['mfu']:.6g}; per-device "
+              f"peak memory {mem['peak_bytes'] / 1e9:.3f} GB (params "
+              f"{mem['params_bytes'] / 1e9:.3f}, optimizer "
+              f"{mem['opt_bytes'] / 1e9:.3f}, the step's live tensors "
+              f"{mem['peak_step_bytes'] / 1e9:.3f}), fits 80 GB "
+              f"{mem['fits']}; wall {res['wall_s']:.2f} s in its process")
+    print(f"[dryrun] {len(procs)} cells at once: wall "
+          f"{time.monotonic() - t0:.1f} s")
+
+
 def phase_profile():
     """Where the time goes: a shorter serve run (gen 4, plain and with
     --td-attn td; then again untraced, its host syncs counted a step), a
@@ -5780,7 +6032,8 @@ def main() -> None:
                   phase_frontend, phase_zamba2, phase_rwkv6, phase_dbrx,
                   phase_noise_loop, phase_td_attention,
                   phase_lm_noise_sweep, phase_lm_sweep_families,
-                  phase_drift_traces, phase_chaos_serve, phase_chaos_train):
+                  phase_drift_traces, phase_chaos_serve, phase_chaos_train,
+                  phase_mesh):
         gc.collect()           # engines wrapped by `_counted` form cycles
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -5788,6 +6041,7 @@ def main() -> None:
               *((launches, rows) if phase in with_rows else (launches,)))
     gc.collect()
     torch.cuda.empty_cache()
+    timed("dryrun", phase_dryrun)
     timed("profile", phase_profile)
     print(f"[time] phase walls, s: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())

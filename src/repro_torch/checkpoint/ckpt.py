@@ -279,8 +279,39 @@ def verify(ckpt_dir: str, step: int) -> None:
     _load_verified(ckpt_dir, step)
 
 
+def _sharding_at(shardings, name: str):
+    """The leaf of ``shardings`` at checkpoint leaf ``name`` (dict keys,
+    list indices and dataclass field numbers, as `_flatten` names them):
+    a spec tuple or a tuple of placements."""
+    node = shardings
+    for part in name.split("/") if name else []:
+        if isinstance(node, dict):
+            node = node[part]
+        elif isinstance(node, list):
+            node = node[int(part)]
+        elif dataclasses.is_dataclass(node):
+            node = getattr(node, dataclasses.fields(node)[int(part)].name)
+        else:
+            break
+    return node
+
+
+def _place(t: torch.Tensor, sharding, mesh):
+    """``t`` as a DTensor on ``mesh`` by ``sharding`` (a spec or a tuple
+    of placements); each rank keeps its own shard of the full value."""
+    from torch.distributed.tensor import Placement, distribute_tensor
+    if not isinstance(t, torch.Tensor) or sharding is None:
+        return t
+    pl = list(sharding)
+    if not pl or not all(isinstance(p, Placement) for p in pl):
+        from repro_torch.launch import sharding as sharding_lib
+        pl = sharding_lib.placements(tuple(sharding), mesh)
+    return distribute_tensor(t, mesh, pl, src_data_rank=None)
+
+
 def restore(ckpt_dir: str, like_tree, step: int | None = None,
-            device=None) -> tuple[int, object, dict]:
+            device=None, shardings=None,
+            mesh=None) -> tuple[int, object, dict]:
     """Restore into the structure of ``like_tree``: (step, tree, meta).
 
     With ``step=None`` the steps are tried newest first and the first one
@@ -288,7 +319,15 @@ def restore(ckpt_dir: str, like_tree, step: int | None = None,
     checkpoint falls back to the last intact step.  A named step never
     falls back: a corrupt one raises CorruptCheckpoint.  The leaves come
     back as tensors of their saved dtypes on ``device`` (None: the host).
+
+    ``shardings`` (with ``mesh``, a `DeviceMesh`): a tree of the same
+    structure whose leaves are specs (`launch.sharding`) or tuples of
+    DTensor placements; each leaf comes back as a DTensor so placed,
+    every rank holding its own shard (the reference's ``device_put`` onto
+    NamedShardings).
     """
+    if shardings is not None and mesh is None:
+        raise ValueError("restore(shardings=...) needs the mesh")
     steps = latest_steps(ckpt_dir)
     if not steps:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
@@ -313,6 +352,12 @@ def restore(ckpt_dir: str, like_tree, step: int | None = None,
     missing = [n for n in names if n not in index]
     if missing:
         raise ValueError(f"checkpoint missing keys: {missing[:5]}...")
-    tree = _rebuild(like_tree, lambda n: _from_host(
-        arrays[index[n]], manifest["dtypes"][index[n]], device))
+    def leaf(n):
+        t = _from_host(arrays[index[n]], manifest["dtypes"][index[n]],
+                       device)
+        if shardings is None:
+            return t
+        return _place(t, _sharding_at(shardings, n), mesh)
+
+    tree = _rebuild(like_tree, leaf)
     return step, tree, manifest["meta"]

@@ -30,7 +30,12 @@ _MODULES = {
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
 
-ARCH_NAMES = tuple(_MODULES)
+ARCH_NAMES = ("granite-8b", "qwen2.5-3b", "qwen3-8b", "qwen3-4b",
+              "internvl2-26b", "seamless-m4t-large-v2", "dbrx-132b",
+              "granite-moe-1b-a400m", "zamba2-1.2b", "rwkv6-1.6b")
+
+# pure full-attention archs skip the long_500k cell (sub-quadratic required)
+LONG_CONTEXT_ARCHS = ("zamba2-1.2b", "rwkv6-1.6b")
 
 
 def _module(name: str):
@@ -45,6 +50,19 @@ def get_smoke(name: str) -> ArchConfig:
     return _module(name).smoke()
 
 
+def cells(include_skips: bool = True):
+    """All 40 (arch x shape) cells in the reference's order, as (arch,
+    shape, skipped): long_500k is skipped on every arch outside
+    `LONG_CONTEXT_ARCHS`, which leaves 34."""
+    out = []
+    for a in ARCH_NAMES:
+        for s in SHAPES.values():
+            skip = (s.name == "long_500k" and a not in LONG_CONTEXT_ARCHS)
+            if include_skips or not skip:
+                out.append((a, s.name, skip))
+    return out
+
+
 __all__ = ["ArchConfig", "ModelCfg", "MoECfg", "RWKVCfg", "SSMCfg",
            "ShapeCfg", "TDExecCfg", "TrainCfg", "SHAPES", "ARCH_NAMES",
-           "get", "get_smoke"]
+           "LONG_CONTEXT_ARCHS", "get", "get_smoke", "cells"]

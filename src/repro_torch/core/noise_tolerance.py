@@ -123,21 +123,51 @@ def probe_vectors(sigmas: Sequence[float], n_layers: int,
     return vecs
 
 
+def _eval_sharded(eval_fn, v: torch.Tensor, k: list, mesh) -> torch.Tensor:
+    """``eval_fn(v, k)`` with the probe axis placed over the mesh's data
+    axes (`launch.sharding.shard_probes`): each rank evaluates its block
+    and the accuracies are all-gathered in probe order.  A probe count
+    that does not divide runs whole on every rank."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
+    if mesh_lib.dp_size(mesh) == 1:
+        return torch.as_tensor(eval_fn(v, k)).reshape(-1)
+    (vd,) = sharding.shard_probes(mesh, (v,))
+    lo, hi = sharding.local_block(
+        v.shape[0], mesh, sharding.probe_spec(mesh, v.shape[0], 1)[0])
+    acc = torch.as_tensor(eval_fn(vd.to_local(), k[lo:hi])).reshape(-1)
+    return DTensor.from_local(acc, mesh, vd.placements,
+                              run_check=False).full_tensor()
+
+
 def _run_probes(eval_fn, flat_v: torch.Tensor, flat_k: list,
-                chunk_size: int | None) -> np.ndarray:
+                chunk_size: int | None, mesh=None) -> np.ndarray:
     """Evaluate all (probe, key) pairs: one call, or ``chunk_size`` probes
     a call with the tail chunk padded by repeats of the first probe (their
-    results discarded), so every call has the same P."""
+    results discarded), so every call has the same P.
+
+    With ``mesh`` the probe axis (the within-chunk axis when chunked) is
+    split over the mesh's data axes (`_eval_sharded`): each probe is an
+    independent eval, so the sweep runs data-parallel across devices with
+    one all-gather of accuracies a call, and every probe's result is the
+    one the unsharded call gives it."""
     t = flat_v.shape[0]
+
+    def run(v, k):
+        if mesh is None:
+            return eval_fn(v, k)
+        return _eval_sharded(eval_fn, v, k, mesh)
+
     if chunk_size is None or chunk_size >= t:
-        accs = [eval_fn(flat_v, flat_k)]
+        accs = [run(flat_v, flat_k)]
     else:
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         pad = (-t) % chunk_size
         flat_v = torch.cat([flat_v, flat_v[:1].expand(pad, -1)])
         flat_k = flat_k + [flat_k[0]] * pad
-        accs = [eval_fn(flat_v[c:c + chunk_size], flat_k[c:c + chunk_size])
+        accs = [run(flat_v[c:c + chunk_size], flat_k[c:c + chunk_size])
                 for c in range(0, t + pad, chunk_size)]
     accs = torch.cat([torch.as_tensor(a).reshape(-1) for a in accs])
     return accs.cpu().numpy().astype(np.float64)[:t]
@@ -162,13 +192,11 @@ def find_sigma_max_batched(eval_fn: Callable[[torch.Tensor, list],
     ``split(fold_in(key, l), S*R + 1)``: eval (i, r) uses keys[i*R + r]
     and the clean eval keys[-1], as a scalar `find_sigma_max` of layer l
     with key ``fold_in(key, l)`` does.  ``chunk_size`` bounds the probes
-    of one call; the results equal the unchunked call's.  ``mesh`` (the
-    reference's probe sharding over devices) is not ported.
+    of one call; the results equal the unchunked call's.  ``mesh`` (a
+    `DeviceMesh` with a 'data' axis, every rank calling with the same
+    arguments) splits each call's probes over the data axes
+    (`_run_probes`); the results equal the unsharded call's bit for bit.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "find_sigma_max_batched(mesh=...): sharding the probes over "
-            "several devices is not ported yet (ROADMAP.md §1 item 9)")
     dev = device_mod.resolve(device)
     sig = np.asarray(list(sigmas), np.float64)
     s, l, r = len(sig), int(n_layers), int(n_repeats)
@@ -178,7 +206,8 @@ def find_sigma_max_batched(eval_fn: Callable[[torch.Tensor, list],
               for k in prng.split(prng.fold_in(key, li), per)]
     flat_v = torch.tensor(vecs.reshape(l * per, l), dtype=torch.float32,
                           device=dev)
-    accs = _run_probes(eval_fn, flat_v, flat_k, chunk_size).reshape(l, per)
+    accs = _run_probes(eval_fn, flat_v, flat_k, chunk_size,
+                       mesh).reshape(l, per)
     acc_clean = accs[:, -1]
     acc = accs[:, : s * r].reshape(l, s, r).mean(axis=-1)
     drop = 1.0 - acc / np.maximum(acc_clean[:, None], 1e-9)

@@ -8,13 +8,34 @@ attention with a q-chunked differentiable masked softmax
 (`_attn_recompute`, plain torch as the reference's is jnp) and takes its
 gradient, so the residuals are just (q, k, v).  ``kv_len`` / ``q_offset``
 are integer runtime operands and get no gradient.
+
+On DTensors the kernel runs on local shards of the batch or of the query
+and KV heads (`kernels.sharded`).  Under a `roofline.counter.Counter` the
+forward records the reference's analytic attention cost (4 B Sq Skv Hq D
+FLOPs; q, k, v and o read or written once) and the backward twice that
+(the reference's x3 for a trained site), and neither runs.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import sharded
 from repro_torch.kernels.attn_common import attn_mask, masked_softmax
 from repro_torch.kernels.flash_attn.flash_attn import flash_attn
+from repro_torch.roofline import counter
+
+# batch rows, or query and KV heads: (q, k, v, kv_len, q_offset) -> o
+_OPTIONS = [((0, 0, 0, 0, None), (0,)), ((2, 2, 2, None, None), (2,))]
+
+
+def attn_cost(q, k) -> tuple[float, float]:
+    """(FLOPs, bytes) of one forward: QK^T and PV, q/o and k/v moved once
+    at their storage width (the reference's `_scan_corrections`)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    flops = 4.0 * b * sq * skv * hq * d
+    nbytes = k.element_size() * b * (2.0 * sq * hq * d + 2.0 * skv * hkv * d)
+    return flops, nbytes
 
 
 def _masked_attn(q, k, v, kv_len, q_offset, causal: bool):
@@ -57,11 +78,23 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, kv_len, q_offset, causal):
         ctx.save_for_backward(q, k, v, kv_len, q_offset)
         ctx.causal = causal
+        c = counter.active()
+        if c is not None:
+            flops, nbytes = attn_cost(q, k)
+            c.record_kernel("flash_attn", flops=flops, nbytes=nbytes)
+            return torch.empty_like(q)
         return flash_attn(q, k, v, kv_len, q_offset, causal=causal)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, kv_len, q_offset = ctx.saved_tensors
+        c = counter.active()
+        if c is not None:
+            flops, nbytes = attn_cost(q, k)
+            c.record_kernel("flash_attn_bwd", flops=2 * flops,
+                            nbytes=2 * nbytes)
+            return (torch.empty_like(q), torch.empty_like(k),
+                    torch.empty_like(v), None, None, None)
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             o = _attn_recompute(ctx.causal, *leaves, kv_len, q_offset)
@@ -81,5 +114,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_len = torch.full((b,), skv, dtype=torch.int32, device=q.device)
     if q_offset is None:
         q_offset = torch.zeros((1,), dtype=torch.int32, device=q.device)
-    return _FlashAttention.apply(q, k, v, kv_len.to(torch.int32),
-                                 q_offset.reshape(1).to(torch.int32), causal)
+    args = [q, k, v, kv_len.to(torch.int32),
+            q_offset.reshape(1).to(torch.int32)]
+    if sharded.mesh_of(q, k, v) is not None:
+        return sharded.local_call(
+            lambda *a: _FlashAttention.apply(*a, causal), args, _OPTIONS)
+    return _FlashAttention.apply(*args, causal)

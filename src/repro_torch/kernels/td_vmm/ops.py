@@ -16,13 +16,22 @@ for the device, however many seeds a run derives.
 (the batched noise search's probes, TD attention's ``_lane_vmm``): P lanes
 of x, one w shared or one a lane, and a (sigma, tdc_q, seed) a lane as
 device tensors, in one launch.
+
+On DTensors a noiseless call runs on local shards of x's rows or w's
+columns (`kernels.sharded`): each output element then depends on its row
+and column alone.  The noise hashes an element's position within the
+call, so a noisy call, and every lane call, runs on replicated operands.
+Under a `roofline.counter.Counter` a call records 2 M K N bits_a int8
+operations and its bytes (codes in, f32 out) and does not run.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import sharded
 from repro_torch.kernels.td_vmm import ref as td_ref
 from repro_torch.kernels.td_vmm.td_vmm import td_vmm as td_vmm_kernel
+from repro_torch.roofline import counter
 
 _params: dict[tuple, torch.Tensor] = {}
 
@@ -66,10 +75,34 @@ def policy_params(pol, device) -> torch.Tensor:
     return sigma.as_strided((2,), (1,), sigma.storage_offset())
 
 
+def _record(x_int, w_int, pol, lanes: int = 1) -> torch.Tensor:
+    """Count one call under the active counter; an empty result."""
+    k, n = w_int.shape[-2:]
+    m = x_int.numel() // k
+    counter.active().record_kernel(
+        "td_vmm", int_ops=2.0 * m * k * n * pol.bits_a,
+        nbytes=float(m * k + w_int.numel() + 4 * m * n))
+    return x_int.new_empty((*x_int.shape[:-1], n), dtype=torch.float32)
+
+
+def _noiseless(pol) -> bool:
+    sigma = pol.sigma_chain
+    return not isinstance(sigma, torch.Tensor) and float(sigma) == 0.0
+
+
 def td_vmm_seeded(x_int: torch.Tensor, w_int: torch.Tensor, pol,
                   seed: int) -> torch.Tensor:
     """x_int (..., K) and w_int (K, N) signed codes; ``seed`` an already
     derived uint32 noise seed (`ref.derive_seed`).  Returns (..., N) f32."""
+    if sharded.mesh_of(x_int, w_int) is not None:
+        last = x_int.dim() - 1
+        options = ([((0, None), (0,)), ((None, 1), (last,))]
+                   if _noiseless(pol) else [])
+        return sharded.local_call(
+            lambda x, w: td_vmm_seeded(x, w, pol, seed), [x_int, w_int],
+            options)
+    if counter.active() is not None:
+        return _record(x_int, w_int, pol)
     k, n = w_int.shape
     lead = x_int.shape[:-1]
     params = policy_params(pol, x_int.device)
@@ -97,6 +130,12 @@ def td_vmm_lanes(x_int: torch.Tensor, w_int: torch.Tensor, pol,
     (derived uint32 seeds) on x's device; ``pol`` gives the widths and
     n_chain.  Returns (P, ..., N) f32: lane p is ``td_vmm_seeded`` of lane
     p's operands at its sigma, tdc_q and seed."""
+    if sharded.mesh_of(x_int, w_int, sigma, tdc_q, seeds) is not None:
+        return sharded.local_call(
+            lambda *a: td_vmm_lanes(a[0], a[1], pol, *a[2:]),
+            [x_int, w_int, sigma, tdc_q, seeds], [])
+    if counter.active() is not None:
+        return _record(x_int, w_int, pol)
     p_lanes = x_int.shape[0]
     k, n = w_int.shape[-2:]
     lead = x_int.shape[1:-1]

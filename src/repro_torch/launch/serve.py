@@ -30,6 +30,7 @@ replays a traffic trace through it (`ft.TrafficTrace`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -40,6 +41,7 @@ import repro_torch.configs as cfgs
 from repro_torch import device as device_mod
 from repro_torch import ft
 from repro_torch.configs.base import ShapeCfg
+from repro_torch.launch import sharding
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch import td_cli
 from repro_torch.launch.scheduler import ContinuousBatchingEngine, Request
@@ -61,16 +63,29 @@ def frontend_embeds(seed: int, batch: int, n: int, d: int) -> np.ndarray:
     return rng.standard_normal((batch, n, d), dtype=np.float32)
 
 
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value; a plain tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
 
 def run(arch, batch: int, prompt_len: int, gen: int, seed: int = 0,
-        device=None, stats: dict | None = None) -> torch.Tensor:
+        device=None, stats: dict | None = None, mesh=None) -> torch.Tensor:
     """Serve ``batch`` prompts and return the (batch, gen) greedy tokens.
     ``stats``, when given, receives ``prefill_ms`` and ``decode_ms`` (the
-    per-step list), each timed on the host clock up to a device sync.
+    per-step list), each timed on the host clock up to a device sync, and
+    with a ``logits`` list in it, the prefill's last-position logits and
+    each decode step's, as full tensors.
+
+    ``mesh`` (a `DeviceMesh` with 'data' and 'model' axes over the cards
+    of the default process group) serves on it: the parameters are
+    DTensors placed by `sharding.param_specs(serving=True)`, the prompts
+    split over the batch by `batch_spec`, the steps run in
+    `sharding.sharded_region` and the kernels on their local shards.
 
     A stub frontend's or an enc-dec model's prompts come with
     ``frontend_embeds(seed, batch, max(8, prompt_len // 2), d_frontend)``.
@@ -86,6 +101,12 @@ def run(arch, batch: int, prompt_len: int, gen: int, seed: int = 0,
     params = api["init"](seed, cfg, pol, dtype=compute_dt, device=dev)
     toks = torch.from_numpy(prompts(seed, batch, prompt_len,
                                     cfg.vocab)).to(dev)
+    if mesh is not None:
+        params = sharding.distribute(
+            params, sharding.param_specs(params, mesh, serving=True), mesh)
+        toks = sharding.distribute(
+            {"t": toks}, {"t": sharding.batch_spec(mesh, batch, 2)},
+            mesh)["t"]
     batch_in = {"tokens": toks}
     s_cache = prompt_len + gen
     if cfg.family == "encdec" or cfg.frontend is not None:
@@ -96,17 +117,23 @@ def run(arch, batch: int, prompt_len: int, gen: int, seed: int = 0,
         if cfg.family == "decoder":
             s_cache += n_front
     shape = ShapeCfg("serve", s_cache, batch, "decode")
+    keep = stats.get("logits") if stats is not None else None
     prefill = steps_lib.build_prefill_step(arch, shape, device=dev)
-    serve_step = steps_lib.build_serve_step(arch, shape, device=dev)
+    serve_step = steps_lib.build_serve_step(arch, shape, device=dev,
+                                            logits_out=keep)
+    region = (contextlib.nullcontext() if mesh is None
+              else sharding.sharded_region(mesh))
 
     # the spans "serve.prefill" / "serve.decode" end at a device sync, so
     # a profiler trace can assign every kernel to the step that ran it
-    with torch.inference_mode():
+    with torch.inference_mode(), region:
         _sync(dev)
         t0 = time.monotonic()
         with record_function("serve.prefill"):
             logits, state = prefill(params, batch_in)
-            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            if keep is not None:
+                keep.append(logits[:, -1])
+            tok = common.argmax_last(logits[:, -1]).to(torch.int32)[:, None]
             _sync(dev)
         t_prefill = time.monotonic() - t0
 
@@ -119,7 +146,9 @@ def run(arch, batch: int, prompt_len: int, gen: int, seed: int = 0,
                 _sync(dev)
             lat.append(time.monotonic() - t1)
             out_toks.append(tok)
-    gen_ids = torch.cat(out_toks, dim=1)
+    gen_ids = _full(torch.cat(out_toks, dim=1))
+    if keep is not None:
+        keep[:] = [_full(t) for t in keep]
 
     lat_a = np.asarray(lat) if lat else np.asarray([0.0])
     print(f"[serve] prefill({batch}x{prompt_len}): {t_prefill*1e3:.1f} ms; "

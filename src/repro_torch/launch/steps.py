@@ -123,8 +123,10 @@ def build_prefill_step(arch: ArchConfig, shape: ShapeCfg, device=None):
     return prefill_step
 
 
-def build_serve_step(arch: ArchConfig, shape: ShapeCfg, device=None):
-    """One decode step: new token against a seq_len KV cache."""
+def build_serve_step(arch: ArchConfig, shape: ShapeCfg, device=None,
+                     logits_out: list | None = None):
+    """One decode step: new token against a seq_len KV cache.  Each
+    step's logits are appended to ``logits_out`` when one is given."""
     cfg = arch.model
     pol = common.resolve_arch_policy(arch, device=device)
     api = get_api(cfg)
@@ -133,7 +135,9 @@ def build_serve_step(arch: ArchConfig, shape: ShapeCfg, device=None):
     def serve_step(params, tok, state):
         p_c = common.cast_tree(params, compute_dt)
         logits, new_state = api["decode_step"](p_c, tok, state, cfg, pol)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        if logits_out is not None:
+            logits_out.append(logits)
+        next_tok = common.argmax_last(logits).to(torch.int32)[:, None]
         return next_tok, new_state
 
     return serve_step

@@ -127,8 +127,8 @@ def attention(params: dict, x: torch.Tensor, cfg: ModelCfg, pol,
         s_cache = cache["k"].shape[1]
         # dynamic_update_slice clamps the start so the update fits
         start = min(max(idx, 0), s_cache - s)
-        cache["k"][:, start:start + s] = k.to(cache["k"].dtype)
-        cache["v"][:, start:start + s] = v.to(cache["v"].dtype)
+        common.write_seq(cache["k"], start, k.to(cache["k"].dtype))
+        common.write_seq(cache["v"], start, v.to(cache["v"].dtype))
         new_cache = {"k": cache["k"], "v": cache["v"], "idx": idx + s}
         kv_len = torch.full((b,), idx + s, dtype=torch.int32, device=dev)
         q_offset = torch.full((1,), idx, dtype=torch.int32, device=dev)

@@ -11,9 +11,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch import prng
 from repro_torch.configs.base import ArchConfig, TDExecCfg
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding
 from repro_torch.tdsim import policy as td_policy
 from repro_torch.tdsim import td_linear
 
@@ -180,6 +183,125 @@ def replace_td_layers(pol, solved):
 
 
 # ---------------------------------------------------------------------------
+# Sharding constraints (identity outside an active mesh)
+# ---------------------------------------------------------------------------
+def _abstract_mesh():
+    """The ambient mesh (`launch.mesh.activate_mesh`), or None."""
+    return mesh_lib.active_mesh()
+
+
+def maybe_constrain(x: torch.Tensor, *axes) -> torch.Tensor:
+    """Redistribute the DTensor ``x`` to the spec ``axes`` (one entry a
+    dim: None, an axis name or a tuple of them) if a mesh providing every
+    named axis is active; otherwise, and on a plain tensor, the identity.
+    Axes that do not divide their dim are dropped, as the reference's
+    `with_sharding_constraint` wrapper drops them.  Lets model code carry
+    distribution hints without coupling tests to a mesh."""
+    env = _abstract_mesh()
+    if env is None:
+        return x
+    if not isinstance(x, DTensor):
+        return x
+    names = set(mesh_lib.axis_names(env))
+
+    def ok(a):
+        if a is None:
+            return True
+        if isinstance(a, (tuple, list)):
+            return all(n in names for n in a)
+        return a in names
+
+    if not all(ok(a) for a in axes):
+        return x
+    fixed = []
+    for dim, a in zip(x.shape, axes):
+        if a is None:
+            fixed.append(None)
+            continue
+        ax = (a,) if isinstance(a, str) else tuple(a)
+        n = 1
+        for nm in ax:
+            n *= mesh_lib.axis_size(env, nm)
+        fixed.append(a if dim % n == 0 else None)
+    pl = sharding.placements(tuple(fixed), x.device_mesh)
+    if tuple(pl) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def state_device(device):
+    """Where a fresh decode state is built: ``meta`` (shapes only) on an
+    active mesh, whose `place_state` then makes each rank's own shards;
+    else ``device`` resolved."""
+    from repro_torch import device as device_mod
+    if _abstract_mesh() is not None:
+        return torch.device("meta")
+    return device_mod.resolve(device)
+
+
+def place_state(state):
+    """A fresh (all-zero) decode state (KV caches, SSM states) as DTensors
+    on the ambient mesh, placed by `launch.sharding.cache_specs`, each
+    rank allocating only its shards; as it is without a mesh."""
+    env = _abstract_mesh()
+    if env is None:
+        return state
+    from torch.distributed.tensor import zeros as dzeros
+    specs = sharding.cache_specs(state, env)
+    flat = {}
+    sharding.map_with_path(lambda p, sp: flat.__setitem__(p, sp), specs)
+    return sharding.map_with_path(
+        lambda p, t: dzeros(tuple(t.shape), dtype=t.dtype, device_mesh=env,
+                            placements=sharding.placements(flat[p], env))
+        if isinstance(t, torch.Tensor) else t, state)
+
+
+def write_seq(buf: torch.Tensor, start: int, val: torch.Tensor) -> None:
+    """``buf[:, start:start + S] = val`` (S = val's dim 1).  On a DTensor
+    ``buf`` split over dim 1 (a KV cache split over its sequence), each
+    rank writes the part of ``val`` that falls in its own block, so no
+    rank gathers the cache."""
+    s = val.shape[1]
+    if not (isinstance(buf, DTensor)
+            and any(p.is_shard(1) for p in buf.placements)):
+        buf[:, start:start + s] = val
+        return
+    mesh = buf.device_mesh
+    pl = [Replicate() if p.is_shard(1) else p for p in buf.placements]
+    if not isinstance(val, DTensor):
+        val = DTensor.from_local(val, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    v_loc = val.redistribute(mesh, pl).to_local().detach()
+    b_loc = buf._local_tensor
+    names = mesh_lib.axis_names(mesh)
+    lo, _ = sharding.local_block(buf.shape[1], mesh, tuple(
+        a for a, p in zip(names, buf.placements) if p.is_shard(1)))
+    n = b_loc.shape[1]
+    a, z = max(start, lo), min(start + s, lo + n)
+    if a < z:
+        b_loc[:, a - lo:z - lo] = v_loc[:, a - start:z - start]
+
+
+def argmax_last(x: torch.Tensor) -> torch.Tensor:
+    """``argmax(x, -1)``; a DTensor split over its last dim (the logits'
+    vocabulary) is gathered over it first."""
+    last = x.dim() - 1
+    if isinstance(x, DTensor) and any(p.is_shard(last)
+                                      for p in x.placements):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_shard(last) else p for p in x.placements])
+    return torch.argmax(x, dim=-1)
+
+
+def batch_sharding_axes(env=None):
+    """The axes that shard the batch on the ambient mesh, or None."""
+    env = env or _abstract_mesh()
+    if env is None:
+        return None
+    return ("pod", "data") if "pod" in mesh_lib.axis_names(env) else "data"
+
+
+# ---------------------------------------------------------------------------
 # Initializers / dense layer
 # ---------------------------------------------------------------------------
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, pol,
@@ -240,7 +362,49 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32,
 
 
 def embed(params: dict, ids: torch.Tensor) -> torch.Tensor:
-    return params["table"][ids]
+    table = params["table"]
+    if isinstance(table, DTensor):
+        # the table's rows gathered over the vocabulary's axes (DTensor's
+        # vocab-parallel lookup leaves a masked partial sum that its
+        # backward cannot turn back), then the rows looked up and split
+        # over the batch
+        table = table.redistribute(table.device_mesh, [
+            Replicate() if p.is_shard(0) else p for p in table.placements])
+        out = torch.nn.functional.embedding(ids, table)
+        return maybe_constrain(out, batch_sharding_axes(),
+                               *([None] * (out.dim() - 1)))
+    return table[ids]
+
+
+def _pick(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``.  On a DTensor split over its vocabulary each
+    rank picks the labels in its own block (zero elsewhere) and the
+    result is a partial sum over the vocabulary's mesh axes, as a
+    vocab-parallel cross-entropy does: the logits are never gathered."""
+    last = logits.dim() - 1
+    if not (isinstance(logits, DTensor)
+            and any(p.is_shard(last) for p in logits.placements)):
+        return torch.gather(logits, -1,
+                            labels[..., None].to(torch.int64))[..., 0]
+    mesh = logits.device_mesh
+    names = mesh_lib.axis_names(mesh)
+    vocab = tuple(a for a, p in zip(names, logits.placements)
+                  if p.is_shard(last))
+    lab_pl = [Replicate() if p.is_shard(last) else p
+              for p in logits.placements]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    lab = labels.redistribute(mesh, lab_pl).to_local().to(torch.int64)
+    lg = logits.to_local()
+    n = lg.shape[-1]
+    lo, _ = sharding.local_block(logits.shape[-1], mesh, vocab)
+    inside = (lab >= lo) & (lab < lo + n)
+    picked = torch.gather(lg, -1, (lab - lo).clamp(0, n - 1)[..., None])
+    picked = torch.where(inside, picked[..., 0], 0.0)
+    out_pl = [Partial() if p.is_shard(last) else p
+              for p in logits.placements]
+    return DTensor.from_local(picked, mesh, out_pl, run_check=False)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -249,7 +413,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean next-token CE with z-loss; logits (..., V), labels (...)."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    ll = _pick(logits, labels)
     loss = (lse - ll) + z_coef * lse ** 2
     if mask is not None:
         loss = loss * mask

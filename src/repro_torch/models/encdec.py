@@ -80,6 +80,13 @@ def _run(layer, remat: str, *args):
         layer, *args, use_reentrant=False, preserve_rng_state=False)
 
 
+def _stream(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream after a sublayer: on a mesh, its tensor-parallel
+    partial sums reduced and its rows batch-split (else as it is)."""
+    return common.maybe_constrain(x, common.batch_sharding_axes(), None,
+                                  None)
+
+
 def encode(params: dict, embeds: torch.Tensor, cfg: ModelCfg, pol,
            key=None, remat: str = "none") -> torch.Tensor:
     """embeds (B, S_src, d_frontend) stub frame embeddings -> the encoder's
@@ -87,6 +94,7 @@ def encode(params: dict, embeds: torch.Tensor, cfg: ModelCfg, pol,
     (causal when ``cfg.enc_bidirectional`` is off), RoPE at
     ``arange(S_src)``."""
     x = common.dense(params["adapter"], embeds, pol)
+    x = common.maybe_constrain(x, common.batch_sharding_axes(), None, None)
     positions = torch.arange(x.shape[1], device=x.device)
 
     def layer(lp, xx, i):
@@ -94,10 +102,10 @@ def encode(params: dict, embeds: torch.Tensor, cfg: ModelCfg, pol,
         y, _ = attention.attention(lp["attn"], h, cfg, pol, positions,
                                    causal=not cfg.enc_bidirectional,
                                    key=common.fold_key(key, 2 * i))
-        xx = xx + y
+        xx = _stream(xx + y)
         h = common.rmsnorm(lp["ln2"], xx, cfg.rms_eps)
-        return xx + ffn.swiglu(lp["mlp"], h, pol,
-                               common.fold_key(key, 2 * i + 1))
+        return _stream(xx + ffn.swiglu(lp["mlp"], h, pol,
+                                       common.fold_key(key, 2 * i + 1)))
 
     for i, lp in enumerate(params["encoder"]):
         x = _run(layer, remat, lp, x, i)
@@ -121,15 +129,15 @@ def decode(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor,
         y, nc = attention.attention(lp["attn"], h, cfg, pol, positions,
                                     cache=cache,
                                     key=common.fold_key(key, 3 * i))
-        xx = xx + y
+        xx = _stream(xx + y)
         h = common.rmsnorm(lp["ln_x"], xx, cfg.rms_eps)
         y, _ = attention.attention(lp["xattn"], h, cfg, pol, positions,
                                    kv_from=enc_out, causal=False,
                                    key=common.fold_key(key, 3 * i + 1))
-        xx = xx + y
+        xx = _stream(xx + y)
         h = common.rmsnorm(lp["ln2"], xx, cfg.rms_eps)
-        xx = xx + ffn.swiglu(lp["mlp"], h, pol,
-                             common.fold_key(key, 3 * i + 2))
+        xx = _stream(xx + ffn.swiglu(lp["mlp"], h, pol,
+                                     common.fold_key(key, 3 * i + 2)))
         return xx, nc
 
     new_caches: list = [None] * cfg.n_layers
@@ -141,12 +149,15 @@ def decode(params: dict, tokens: torch.Tensor, enc_out: torch.Tensor,
     x = common.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     logits = common.dense(params["lm_head"], x, pol,
                           common.fold_key(key, 10_000))
+    logits = common.maybe_constrain(
+        logits, common.batch_sharding_axes(), None, "model")
     return logits, (new_caches if caches is not None else None)
 
 
 def init_caches(b: int, s_cache: int, cfg: ModelCfg, dtype=torch.bfloat16,
                 device=None) -> list:
     """One self-attention KV cache a decoder layer."""
-    dev = device_mod.resolve(device)
-    return [{"self": attention.init_cache(b, s_cache, cfg, dtype, dev)}
-            for _ in range(cfg.n_layers)]
+    dev = common.state_device(device)
+    return common.place_state(
+        [{"self": attention.init_cache(b, s_cache, cfg, dtype, dev)}
+         for _ in range(cfg.n_layers)])

@@ -9,8 +9,8 @@ lanes in td mode) and combines the slots weighted by router probability.
 `moe_ffn_lanes` runs P probes of the batched noise search at once: each
 probe routes and slots its own tokens, and a projection's P x E expert
 products are one launch.
-The reference's sharding hints (`maybe_constrain`) have no counterpart on
-one card.
+Under an active mesh the MoE's slots are constrained as the reference's
+(`common.maybe_constrain`: experts over 'model', capacity over 'data').
 """
 from __future__ import annotations
 
@@ -138,6 +138,8 @@ def _combine(r: dict, ys: torch.Tensor, moe: MoECfg) -> torch.Tensor:
     slots' contributions, weighted by router probability, in slot order."""
     e, k, cap = moe.num_experts, moe.top_k, r["cap"]
     t, d = r["keep"].shape[0] // k, ys.shape[-1]
+    # on a mesh the combine reads every slot: gather them first
+    ys = common.maybe_constrain(ys, None, None, None)
     ys_flat = ys.reshape(e * cap, d) * r["slot_weight"][:, None].to(ys.dtype)
     slot = r["slot"]
     pair_slot = torch.empty_like(slot).scatter_(0, r["order"], slot)
@@ -186,9 +188,16 @@ def moe_ffn(params: dict, x: torch.Tensor, moe: MoECfg, pol, key=None
     skipped."""
     b, s, d = x.shape
     e = moe.num_experts
-    xt = x.reshape(b * s, d)
+    # on a mesh the routing (a sort over every token) runs replicated:
+    # the tokens are gathered here, where a real expert-parallel dispatch
+    # would exchange only the routed ones
+    xt = common.maybe_constrain(x.reshape(b * s, d), None, None)
     r = _route(params, xt, moe)
     xs = xt[r["slot_token"]].reshape(e, r["cap"], d)              # (E, C, d)
+    # EP: grouped tokens live with their expert; the capacity dim shards
+    # over 'data' (without it the expert products would be replicated
+    # across the data axis)
+    xs = common.maybe_constrain(xs, "model", "data", None)
 
     # ---- experts: lanes of one matmul a projection ------------------------
     def mm(h, nm, j):
@@ -197,8 +206,11 @@ def moe_ffn(params: dict, x: torch.Tensor, moe: MoECfg, pol, key=None
             common.fold_key(key, j))
 
     h = silu(mm(xs, "wg", 0)) * mm(xs, "wi", 1)
+    h = common.maybe_constrain(h, "model", "data", None)
     ys = mm(h, "wo", 2)                                           # (E, C, d)
+    ys = common.maybe_constrain(ys, "model", "data", None)
     y = _combine(r, ys, moe).reshape(b, s, d).to(x.dtype)
+    y = common.maybe_constrain(y, common.batch_sharding_axes(), None, None)
     return y, _aux(r, moe)
 
 

@@ -16,8 +16,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelCfg
+from repro_torch.kernels import sharded
 from repro_torch.models import common
 from repro_torch.models.ffn import silu
+from repro_torch.roofline import counter
 
 MIX_NAMES = ("r", "k", "v", "w", "g")
 
@@ -106,6 +108,22 @@ def wkv6_scan(r, k, v, w, u, s0=None):
     bonus = (r * u[None, None] * k).sum(-1, keepdim=True) * v
     state = (torch.zeros((b, h, hd, hd), dtype=f32, device=r.device)
              if s0 is None else s0)
+    if s > 1 and counter.active() is not None:
+        # counted, not run: one step, counted s times (the dry run)
+        def step(r0, k0, v0, w0, st):
+            y = torch.matmul(r0[:, :, None, :], st)[:, :, 0]
+            return y, torch.addcmul(w0[..., None] * st, k0[..., None],
+                                    v0[:, :, None, :])
+        def count(*a):
+            return counter.repeat("wkv6", s, step, *a)
+        args = [r[:, 0], k[:, 0], v[:, 0], w[:, 0], state]
+        if sharded.mesh_of(*args) is not None:
+            # per (batch row, head): on local shards
+            y1, state = sharded.local_call(
+                count, args, [((0,) * 5, (0, 0)), ((1,) * 5, (1, 1))])
+        else:
+            y1, state = count(*args)
+        return y1[:, None].expand(b, s, h, hd) + bonus, state
     ys = []
     for t in range(s):
         ys.append(torch.matmul(r[:, t, :, None, :], state)[:, :, 0])

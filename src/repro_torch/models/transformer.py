@@ -48,6 +48,7 @@ from torch.utils.checkpoint import (CheckpointPolicy,
 from repro_torch import device as device_mod
 from repro_torch import prng
 from repro_torch.configs.base import ModelCfg
+from repro_torch.kernels import sharded
 from repro_torch.kernels.td_vmm import ref as td_ref
 from repro_torch.models import attention, common, ffn, mamba2, rwkv6
 from repro_torch.tdsim import policy as td_policy
@@ -165,7 +166,9 @@ def _layer_apply(lp: dict, shared: dict | None, x: torch.Tensor,
     else:
         y, new_cache = rwkv6.timemix(lp["timemix"], h, cfg, None,
                                      state=cache, dense=mix)
-    x = x + y
+    # on a mesh: the mixer's partial sums reduced, the stream batch-split
+    x = common.maybe_constrain(x + y, common.batch_sharding_axes(), None,
+                               None)
 
     fk = _ffn_kind(cfg, i)
     if fk == "none":
@@ -239,6 +242,10 @@ def _walk(params: dict, x: torch.Tensor, cfg: ModelCfg, dense,
                 preserve_rng_state=False,
                 **({"context_fn": _dots_contexts} if remat == "dots"
                    else {}))
+        # on a mesh the residual stream leaves each layer batch-split and
+        # whole in d (the tensor-parallel partial sums reduced)
+        x = common.maybe_constrain(x, common.batch_sharding_axes(), None,
+                                   None)
         for name, v in aux.items():
             aux_all[name] = aux_all[name] + v if name in aux_all else v
     return x, new_caches, aux_all
@@ -263,9 +270,13 @@ def _head(params: dict, x: torch.Tensor, cfg: ModelCfg, top, key
     tied embeddings the plain product with the embedding table."""
     x = common.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     if cfg.tie_embeddings:
-        return x @ params["embed"]["table"].T
-    return common.dense(params["lm_head"], x, top,
-                        common.fold_key(key, 10_000))
+        logits = x @ sharded.gather_dp(params["embed"]["table"]).T
+    else:
+        logits = common.dense(params["lm_head"], x, top,
+                              common.fold_key(key, 10_000))
+    # keep the (huge) logits vocab-sharded; CE's logsumexp reduces over it
+    return common.maybe_constrain(logits, common.batch_sharding_axes(), None,
+                                  "model")
 
 
 def _embed(params: dict, batch: dict, cfg: ModelCfg, pol) -> torch.Tensor:
@@ -277,7 +288,7 @@ def _embed(params: dict, batch: dict, cfg: ModelCfg, pol) -> torch.Tensor:
         emb = common.dense(params["adapter"], batch["embeds"],
                            common.pol_top(pol))
         x = torch.cat([emb.to(x.dtype), x], dim=1)
-    return x
+    return common.maybe_constrain(x, common.batch_sharding_axes(), None, None)
 
 
 def forward(params: dict, batch: dict, cfg: ModelCfg, pol,
@@ -425,7 +436,7 @@ def init_caches(b: int, s_cache: int, cfg: ModelCfg, dtype=torch.bfloat16,
     layer, whatever ``dtype``.  ``per_row_idx`` builds the serving engine's
     ragged-slot KV caches (one fill index per batch row)."""
     _check_supported(cfg)
-    dev = device_mod.resolve(device)
+    dev = common.state_device(device)
     caches = []
     for i in range(cfg.n_layers):
         mixer = cfg.mixer_at(i)
@@ -436,4 +447,4 @@ def init_caches(b: int, s_cache: int, cfg: ModelCfg, dtype=torch.bfloat16,
             caches.append(mamba2.init_state(b, cfg, torch.float32, dev))
         else:
             caches.append(rwkv6.init_state(b, cfg, torch.float32, dev))
-    return caches
+    return common.place_state(caches)

@@ -11,7 +11,9 @@ the reference returns new trees from a jitted step that donates its
 inputs: the same values, without holding two copies of the parameters
 and moments (for qwen3-8b, 4 bytes x 3 per parameter) at once.  The step
 count and every schedule value stay device tensors, so an update never
-waits for the device.
+waits for the device.  On DTensor parameters a gradient that autograd
+left partial or in another layout is redistributed to its parameter's
+placements first (the data-parallel reduce-scatter of a sharded step).
 """
 from __future__ import annotations
 
@@ -71,6 +73,14 @@ def lr_schedule(step: torch.Tensor, cfg: TrainCfg) -> torch.Tensor:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``g`` in ``p``'s DTensor placements (as it is for plain tensors)."""
+    pl = getattr(p, "placements", None)
+    if pl is None or tuple(g.placements) == tuple(pl):
+        return g
+    return g.redistribute(p.device_mesh, pl)
+
+
 def global_norm(tree) -> torch.Tensor:
     leaves = [l for _, l in tree_leaves_with_path(tree)]
     return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32)))
@@ -102,7 +112,7 @@ def apply_updates(params, grads, state: OptState, cfg: TrainCfg
     # in-place ops in the reference's order of roundings (a product or sum
     # of two operands rounds once either way round)
     for (path, p), (_, g), (_, m), (_, v) in zip(*trees):
-        g = g.to(torch.float32) * clip
+        g = _placed_like(g, p).to(torch.float32) * clip
         m.mul_(b1).add_(g * (1 - b1))
         v.mul_(b2).add_(g.mul(1 - b2).mul_(g))
         del g

@@ -22,7 +22,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import sharded
 from repro_torch.kernels.lsq_quant.lsq_quant import lsq_quant
+from repro_torch.roofline import counter
 
 
 def qrange(bits: int, signed: bool) -> tuple[int, int]:
@@ -47,6 +49,24 @@ def _scaled_round(v: torch.Tensor, s, qn: int, qp: int) -> tuple:
     return vs, torch.clamp(torch.round(vs), qn, qp), s_
 
 
+def _fake_quant(v: torch.Tensor, s, qn: int, qp: int) -> torch.Tensor:
+    """The lsq_quant kernel: on a DTensor elementwise on v's own shards
+    (s replicated); under a `roofline.counter.Counter` recorded (about
+    five operations an element, v read and the result written once) and
+    not run."""
+    if sharded.mesh_of(v, s) is not None:
+        nd = v.dim()
+        options = [(((d, None)), (d,)) for d in range(nd)]
+        return sharded.local_call(
+            lambda a, b: _fake_quant(a, b, qn, qp), [v, s], options)
+    c = counter.active()
+    if c is not None:
+        c.record_kernel("lsq_quant", flops=5.0 * v.numel(),
+                        nbytes=2.0 * v.numel() * v.element_size())
+        return torch.empty_like(v)
+    return lsq_quant(v, s, qn, qp)
+
+
 class _LSQFakeQuant(torch.autograd.Function):
     """Saves v and s and recomputes v/s and its codes in the backward: for
     the lm_head weight of qwen3-8b that saves 2.5 GB of bf16 residuals."""
@@ -56,7 +76,7 @@ class _LSQFakeQuant(torch.autograd.Function):
         ctx.save_for_backward(v, s)
         ctx.qrange = (qn, qp)
         ctx.lanes = lanes
-        return lsq_quant(v, s, qn, qp)
+        return _fake_quant(v, s, qn, qp)
 
     @staticmethod
     def backward(ctx, g):

@@ -1,10 +1,34 @@
-"""KV-cache sizing of the continuous-batching serve engine (port of
-`KVCachePlan` and `plan_kv_cache` of `repro/roofline/model.py`).
+"""Three-term roofline of the dry run and the serve engine's KV-cache
+sizing (port of `repro/roofline/model.py`).
 
-The reference budgets a TPU's 16 GB; the port budgets the card it runs on:
+Hardware constants of one NVIDIA H100 SXM5 80GB, from NVIDIA's H100 data
+sheet (dense, no sparsity), in place of the reference's TPU v5e-class
+ones:
+
+  PEAK_FLOPS  989e12 bf16 FLOP/s (tensor cores)
+  PEAK_INT8   1979e12 int8 operations/s (td_vmm's bit planes)
+  HBM_BW      3.35e12 B/s
+  HBM_BYTES   80e9
+  NVLINK_BW   450e9 B/s each way (NVLink 4, 900 GB/s bidirectional)
+  IB_BW       50e9 B/s: one 400 Gb/s InfiniBand port a card, the layout of
+              a DGX H100 host (eight ConnectX-7 ports for eight cards)
+
+The reference has one link term, ``coll_bytes / (LINK_BW * N_LINKS)``.  On
+the port's production mesh (`launch.mesh`: model 8 inside a host, data
+and pod across hosts) the collective term is the model axis's link bytes
+over NVLink plus the data and pod axes' over InfiniBand:
+
+  compute_s    = flops / PEAK_FLOPS + int8_ops / PEAK_INT8     (per chip)
+  memory_s     = bytes / HBM_BW
+  collective_s = model_link_bytes / NVLINK_BW
+                 + (link_bytes - model_link_bytes) / IB_BW
+
+Every number the dry run derives from these is a model from data-sheet
+constants, not a measurement.
+
+`KVCachePlan` / `plan_kv_cache` budget the card the engine runs on:
 `device_hbm_bytes` reads the CUDA device's total memory, and a CPU run
-plans for an H100 80GB HBM3 (`H100_HBM_BYTES`).  The reference's dry-run
-roofline (`Roofline`, its TPU constants) is not ported.
+plans for an H100 80GB HBM3 (`H100_HBM_BYTES`).
 """
 from __future__ import annotations
 
@@ -13,6 +37,85 @@ import dataclasses
 import torch
 
 H100_HBM_BYTES = 80e9      # H100 80GB HBM3 data sheet: 80 GB of HBM3
+PEAK_FLOPS = 989e12        # bf16 dense tensor-core FLOP/s, H100 SXM
+PEAK_INT8 = 1979e12        # int8 dense tensor-core operations/s
+HBM_BW = 3.35e12           # B/s
+HBM_BYTES = H100_HBM_BYTES
+NVLINK_BW = 450e9          # B/s each way a card, NVLink 4
+IB_BW = 50e9               # B/s: one 400 Gb/s InfiniBand port a card
+
+
+@dataclasses.dataclass
+class Roofline:
+    arch: str
+    shape: str
+    mesh: str
+    chips: int
+    hlo_flops: float           # per chip
+    hlo_bytes: float           # per chip
+    coll_bytes: float          # per chip (link-model)
+    model_flops: float         # 6*N*D (global, fwd+bwd) or serve analogue
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    peak_flops: float = PEAK_FLOPS
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_s(self) -> float:
+        """Roofline step time = max of the three terms (perfect overlap)."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        """MODEL_FLOPS / (counted FLOPs * chips): remat and replicated work
+        show up as a ratio below 1."""
+        total = self.hlo_flops * self.chips
+        return self.model_flops / total if total else 0.0
+
+    @property
+    def mfu(self) -> float:
+        """Model FLOPs utilization at the roofline step time."""
+        denom = self.step_s * self.chips * self.peak_flops
+        return self.model_flops / denom if denom else 0.0
+
+
+def make_roofline(arch: str, shape: str, mesh: str, chips: int,
+                  flops_total: float, bytes_total: float,
+                  coll_link_bytes_total: float, model_flops: float, *,
+                  coll_model_bytes_total: float = 0.0,
+                  int8_ops_total: float = 0.0,
+                  peak_flops: float = PEAK_FLOPS, hbm_bw: float = HBM_BW,
+                  nvlink_bw: float = NVLINK_BW,
+                  ib_bw: float = IB_BW) -> Roofline:
+    """Totals are whole-program (all chips); divided down to per chip.
+    ``coll_model_bytes_total`` is the part of the link bytes on the model
+    axis (NVLink); the rest crosses hosts (InfiniBand)."""
+    f = flops_total / chips
+    b = bytes_total / chips
+    c = coll_link_bytes_total / chips
+    c_model = coll_model_bytes_total / chips
+    return Roofline(
+        arch=arch, shape=shape, mesh=mesh, chips=chips,
+        hlo_flops=f, hlo_bytes=b, coll_bytes=c, model_flops=model_flops,
+        compute_s=f / peak_flops + int8_ops_total / chips / PEAK_INT8,
+        memory_s=b / hbm_bw,
+        collective_s=c_model / nvlink_bw + (c - c_model) / ib_bw,
+        peak_flops=peak_flops,
+    )
+
+
+def model_flops_train(n_params: float, tokens: float) -> float:
+    return 6.0 * n_params * tokens
+
+
+def model_flops_serve(n_params_active: float, tokens: float) -> float:
+    return 2.0 * n_params_active * tokens
 
 
 def device_hbm_bytes(device) -> float:

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import prng
+from repro_torch.kernels import sharded
 from repro_torch.kernels.td_vmm import ops as td_ops
 from repro_torch.kernels.td_vmm import ref as td_ref
 from repro_torch.quant import bitserial, lsq
@@ -232,7 +233,9 @@ def td_matmul_experts(x: torch.Tensor, w: torch.Tensor, s_a, s_w,
     product; "quant" the batched `_fq_matmul`; "td" one td_vmm launch over
     the E lanes (w a lane, every lane at the policy's sigma and tdc_q),
     lane e seeded by ``derive_seed(split(key, E)[e])`` (``(0, 0)`` for
-    every lane when ``key`` is None), with the lanes' STE backward."""
+    every lane when ``key`` is None), with the lanes' STE backward.  A
+    DTensor stack split over the data axes is gathered first (FSDP)."""
+    w = sharded.gather_dp(w)
     e = w.shape[0]
     if pol.mode == "precise":
         return torch.matmul(x, w)
@@ -278,11 +281,13 @@ def td_matmul_expert_lanes(x: torch.Tensor, w: torch.Tensor, s_a, s_w,
 def linear(params: dict, x: torch.Tensor, pol: TDPolicy,
            key=None) -> torch.Tensor:
     """Linear layer dispatching on the policy.  params holds 'w' (K, N),
-    optional 'b' (N,), and when quantized 's_a', 's_w' scalars."""
+    optional 'b' (N,), and when quantized 's_a', 's_w' scalars.  A
+    DTensor weight split over the data axes is gathered first (FSDP)."""
+    w = sharded.gather_dp(params["w"])
     if pol.mode == "precise":
-        y = _matmul(x, params["w"])
+        y = _matmul(x, w)
     else:
-        y = td_matmul(x, params["w"], params["s_a"], params["s_w"], pol, key)
+        y = td_matmul(x, w, params["s_a"], params["s_w"], pol, key)
     if "b" in params:
         y = y + params["b"]
     return y

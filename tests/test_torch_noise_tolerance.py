@@ -142,9 +142,17 @@ def test_batched_keys_follow_reference_schedule():
     want = [tuple(int(v) for v in k) for li in range(3) for k in
             np.asarray(jax.random.split(jax.random.fold_in(key, li), 5))]
     assert seen[:15] == want
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tnt.find_sigma_max_batched(eval_fn, SIGMAS, (0, 11), n_layers=3,
-                                   mesh=object(), device=CPU)
+    # a mesh whose data axis is one device: the same probes, whole, in
+    # the same order (the sharded search: tests/test_torch_mesh_gloo.py)
+
+    class OneDevice:
+        axis_names = ("data", "model")
+        shape = {"data": 1, "model": 1}
+    seen.clear()
+    tnt.find_sigma_max_batched(eval_fn, SIGMAS[:2], (0, 11), n_layers=3,
+                               n_repeats=2, chunk_size=4, mesh=OneDevice(),
+                               device=CPU)
+    assert seen[:15] == want
 
 
 # ---------------------------------------------------------------------------
