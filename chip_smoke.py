@@ -198,11 +198,26 @@
    served plain and on the mesh through `serve.run` with its parameters
    placed by `param_specs(serving=True)`, tokens and logits bit for bit,
    launches, prefill and decode ms and host syncs a step; a checkpoint
-   restored onto the mesh's placements bit for bit) and `phase_dryrun`
-   (`python -m repro_torch.launch.dryrun` of dbrx-132b train_4k at 40
-   layers and of zamba2-1.2b and rwkv6-1.6b at long_500k on the (32, 8)
-   production mesh, three processes at once on the host's CPU, the card
-   hidden from them: each cell's modelled roofline, memory and wall);
+   restored onto the mesh's placements bit for bit); then the stacked
+   scan-over-layers layout (`phase_scan_layers`: qwen3-8b at its widths
+   and 36 layers initialised stacked and unrolled, bit for bit, a keyed
+   td forward whose logits differ between the layouts at the solved
+   policy (the scan's seeds) and agree at sigma 0; served in both layouts
+   in quant mode, td at sigma 0 with tdc_q 1 and td at the solved policy,
+   tokens and logits bit for bit (the serve steps pass no key), launches,
+   prefill and decode ms and 0 host syncs a step each; trained cut to 4
+   layers, 8 x 128, 2 steps, quant and td at sigma 0, remat full and
+   dots, losses and gradient norms bit for bit, step ms and peak GiB of
+   each layout; granite-moe-1b-a400m at 24 layers and rwkv6-1.6b cut to
+   4 served in quant mode in both layouts, bit for bit; decode_gqa,
+   flash_attn and lsq_quant on layer views of stacked tensors, no copy),
+   the four port-side examples in-process (`phase_examples`) and
+   `phase_dryrun` (`python -m repro_torch.launch.dryrun` of dbrx-132b
+   train_4k at 40 layers, of zamba2-1.2b and rwkv6-1.6b at long_500k
+   and of rwkv6-1.6b at long_500k with ``--scan-layers`` on the (32, 8)
+   production mesh, four processes at once on the host's CPU, the card
+   hidden from them: each cell's modelled roofline, memory and wall; the
+   scan cell's FLOPs and collectives equal to the unscanned cell's);
 6. profiles a shorter serve run (plain, then with ``--td-attn td``, and
    counts each one's host syncs a step in an untraced rerun), a
    short scheduler run (4 requests, capacity 4) and a td train step under
@@ -5700,8 +5715,10 @@ def step_syncs(run, names=("prefill", "decode")) -> tuple[int, dict]:
 # The multi-device layer: a (1, 1) mesh on the card, and the dry run
 # ---------------------------------------------------------------------------
 MESH = dict(arch="qwen3-8b", layers=4, batch=4, prompt_len=128, gen=16)
-DRYRUN_CELLS = [("dbrx-132b", "train_4k"), ("zamba2-1.2b", "long_500k"),
-                ("rwkv6-1.6b", "long_500k")]
+DRYRUN_CELLS = [("dbrx-132b", "train_4k", False),
+                ("zamba2-1.2b", "long_500k", False),
+                ("rwkv6-1.6b", "long_500k", False),
+                ("rwkv6-1.6b", "long_500k", True)]
 
 
 def _mesh_search(tag: str, mesh, launches: dict) -> None:
@@ -5883,10 +5900,12 @@ def phase_mesh(launches: dict):
 
 def phase_dryrun():
     """`python -m repro_torch.launch.dryrun` on the (data 32, model 8)
-    production mesh for DRYRUN_CELLS, one process a cell, all at once, on
-    this host's CPU (the fake process group; no kernel runs, the card is
-    hidden from them).  Prints each cell's roofline (a model from the
-    H100's data-sheet rates, not a measurement) and its wall."""
+    production mesh for DRYRUN_CELLS (the last with ``--scan-layers``),
+    one process a cell, all at once, on this host's CPU (the fake process
+    group; no kernel runs, the card is hidden from them).  Prints each
+    cell's roofline (a model from the H100's data-sheet rates, not a
+    measurement) and its wall; a scan cell must count its unscanned
+    cell's FLOPs and collectives."""
     out = ROOT / "build" / "dryrun"
     out.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -5894,10 +5913,11 @@ def phase_dryrun():
     procs = {}
     t0 = time.monotonic()
     try:
-        for arch, shape in DRYRUN_CELLS:
-            procs[(arch, shape)] = subprocess.Popen(
+        for arch, shape, scan in DRYRUN_CELLS:
+            procs[(arch, shape, scan)] = subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 arch, "--shape", shape, "--out", str(out)], env=env,
+                 arch, "--shape", shape, "--out", str(out)]
+                + (["--scan-layers"] if scan else []), env=env,
                 cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)
         logs = {c: p.communicate(timeout=600)[0] for c, p in procs.items()}
@@ -5906,13 +5926,17 @@ def phase_dryrun():
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for (arch, shape), p in procs.items():
+    results = {}
+    for (arch, shape, scan), p in procs.items():
         if p.returncode != 0:
             fail(f"dryrun {arch} {shape} exit {p.returncode}:\n"
-                 f"{logs[(arch, shape)][-4000:]}")
-        res = json.loads((out / f"{arch}__{shape}__32x8.json").read_text())
+                 f"{logs[(arch, shape, scan)][-4000:]}")
+        res = json.loads((out / f"{arch}__{shape}__32x8"
+                          f"{'__scan' if scan else ''}.json").read_text())
+        results[(arch, shape, scan)] = res
         rl, mem = res["roofline"], res["memory"]
-        print(f"[dryrun] {arch} {shape} on 32x8 (256 cards), "
+        print(f"[dryrun] {arch} {shape}{' --scan-layers' if scan else ''} "
+              f"on 32x8 (256 cards), "
               f"{res['n_params']:.6g} params: modelled from H100 SXM "
               f"data-sheet rates, not measured: dominant {rl['dominant']}, "
               f"step_s {rl['step_s']:.6g} (compute {rl['compute_s']:.6g}, "
@@ -5923,8 +5947,435 @@ def phase_dryrun():
               f"{mem['opt_bytes'] / 1e9:.3f}, the step's live tensors "
               f"{mem['peak_step_bytes'] / 1e9:.3f}), fits 80 GB "
               f"{mem['fits']}; wall {res['wall_s']:.2f} s in its process")
+    for (arch, shape, scan), res in results.items():
+        if not scan:
+            continue
+        base = results[(arch, shape, False)]
+        same = (res["flops_per_chip"] == base["flops_per_chip"]
+                and res["collectives"] == base["collectives"])
+        print(f"[dryrun] {arch} {shape} --scan-layers against unscanned: "
+              f"FLOPs a device {res['flops_per_chip']:.6g} / "
+              f"{base['flops_per_chip']:.6g}, collectives "
+              f"{res['collectives']['counts']} / "
+              f"{base['collectives']['counts']}, equal {same}; bytes a "
+              f"device {res['bytes_per_chip']:.6g} / "
+              f"{base['bytes_per_chip']:.6g}, the step's peak live "
+              f"{res['memory']['peak_step_bytes']:.6g} / "
+              f"{base['memory']['peak_step_bytes']:.6g} B (modelled)")
+        if not same:
+            fail(f"dryrun {arch} {shape}: the scan cell counts other FLOPs "
+                 "or collectives than the unscanned cell")
     print(f"[dryrun] {len(procs)} cells at once: wall "
           f"{time.monotonic() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# The stacked scan-over-layers layout (scan_layers) and the examples
+# ---------------------------------------------------------------------------
+SCAN = dict(arch="qwen3-8b", serve_layers=None, train_layers=4,
+            train_steps=2, families=(("granite-moe-1b-a400m", None),
+                                     ("rwkv6-1.6b", 4)))
+EXAMPLES = dict(train_steps=20)
+
+
+def scan_arch(arch):
+    """``arch`` with its model in the stacked layout."""
+    return arch.replace(model=dataclasses.replace(arch.model,
+                                                  scan_layers=True))
+
+
+@contextlib.contextmanager
+def fixed_policy(pol):
+    """Every policy resolution (`serve.run`, the step builders) returns
+    ``pol`` inside the block."""
+    from repro_torch.models import common
+    solve = common.resolve_arch_policy
+    common.resolve_arch_policy = lambda a, device=None: pol
+    try:
+        yield
+    finally:
+        common.resolve_arch_policy = solve
+
+
+def _scan_init(tag: str, arch) -> None:
+    """`init_params(seed, cfg_scan)` at full width in bf16 equals the
+    unrolled init stacked, bit for bit, leaf by leaf; then one keyed
+    forward of SERVE's prompts in each layout: at the solved policy the
+    logits differ (the scan seeds its denses under the reference's scan
+    paths, (i, 0, j) and (i, 1, j), the unrolled forward under (2i, j)
+    and (2i + 1, j)), at sigma 0 with tdc_q 1 they are equal."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.launch import serve
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim.adamw import tree_leaves_with_path
+    pol = common.resolve_arch_policy(arch, device="cuda")
+    cfg = arch.model
+    loop = tr.init_params(0, cfg, pol, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    scan = tr.init_params(0, scan_arch(arch).model, pol, torch.bfloat16,
+                          "cuda")
+    torch.cuda.synchronize()
+    t_scan = time.monotonic() - t0
+    if not isinstance(scan["layers"], dict):
+        fail(f"{tag}: the scan config's init is not stacked")
+    per_layer = [dict(tree_leaves_with_path(lp)) for lp in loop["layers"]]
+    stacked = tree_leaves_with_path(scan["layers"])
+    equal = all(_bits_equal(t[i], per_layer[i][p]) for p, t in stacked
+                for i in range(cfg.n_layers))
+    outer = [(p, t) for p, t in tree_leaves_with_path(scan)
+             if not p.startswith("layers/")]
+    flat_loop = dict(tree_leaves_with_path(loop))
+    equal = equal and all(_bits_equal(t, flat_loop[p]) for p, t in outer)
+    print(f"[{tag}] {cfg.name} init, {cfg.n_layers} layers, bf16: "
+          f"{len(stacked)} stacked leaves of shape (L, ...) equal the "
+          f"unrolled init stacked bit for bit: {equal} (stacked init "
+          f"{t_scan:.2f} s)")
+    if not equal:
+        fail(f"{tag}: the stacked init differs from the unrolled one")
+    toks = torch.from_numpy(serve.prompts(0, SERVE["batch"],
+                                          SERVE["prompt_len"],
+                                          cfg.vocab)).to("cuda")
+    same = {}
+    for label, p in (("solved", pol),
+                     ("sigma 0", pol.replace(sigma_chain=0.0, tdc_q=1))):
+        with torch.inference_mode():
+            lg = [tr.forward(params, {"tokens": toks}, c, p,
+                             key=prng.key(0))[0]
+                  for params, c in ((loop, cfg), (scan,
+                                                  scan_arch(arch).model))]
+        same[label] = _bits_equal(*lg)
+        del lg
+    print(f"[{tag}] a keyed td forward ({SERVE['batch']} x "
+          f"{SERVE['prompt_len']}, key 0): stacked logits equal to the "
+          f"unrolled ones bit for bit at the solved policy {same['solved']} "
+          f"(the seeds differ), at sigma 0 {same['sigma 0']}")
+    if same["solved"] or not same["sigma 0"]:
+        fail(f"{tag}: the keyed forwards {same}")
+
+
+def _layout_serves(tag: str, arch, launches: dict, pol=None) -> dict:
+    """`serve.run` of ``arch`` unrolled and stacked (SERVE's batch,
+    prompt and gen, bf16), at ``pol`` when given: each layout's tokens,
+    logits, prefill and decode ms, host syncs a step (none allowed) and
+    launches (recorded as the paths ``{tag}_unrolled`` and
+    ``{tag}_stacked``)."""
+    import torch
+    from repro_torch.launch import serve
+    mods = kernel_modules()
+    res = {}
+    b, p, g = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    for layout, a in (("unrolled", arch), ("stacked", scan_arch(arch))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        _counts_reset(mods)
+        stats: dict = {"logits": []}
+        out: dict = {}
+
+        def run(a=a, stats=stats, out=out):
+            out["ids"] = serve.run(a, b, p, g, seed=0, stats=stats)
+        with (fixed_policy(pol) if pol is not None
+              else contextlib.nullcontext()):
+            calib, calls = step_syncs(run)
+        counts = {n: m.launches for n, m in mods.items()}
+        launches[f"{tag}_{layout}"] = counts
+        res[layout] = dict(ids=out["ids"], logits=stats["logits"],
+                           prefill=stats["prefill_ms"],
+                           decode=statistics.median(stats["decode_ms"]),
+                           counts=counts)
+        print(f"[{tag}] {layout}: prefill {stats['prefill_ms']:.2f} ms, "
+              f"decode median {res[layout]['decode']:.2f} ms/token; host "
+              f"syncs (calibration {calib}): prefill {calls['prefill']}, "
+              f"each decode step {calls['decode']}; launches {counts}")
+        if calib < 1 or any(calls["prefill"] + calls["decode"]):
+            fail(f"{tag} {layout}: a serve step waits for the device (or "
+                 "the sync counting does not work)")
+    return res
+
+
+def _same_serve(res: dict) -> tuple[bool, bool]:
+    """(tokens equal, every step's logits equal bit for bit) of the two
+    layouts' serves."""
+    import torch
+    u, s = res["unrolled"], res["stacked"]
+    ids = bool(torch.equal(u["ids"], s["ids"]))
+    lg = len(u["logits"]) == len(s["logits"]) == SERVE["gen"] and all(
+        _bits_equal(x, y) for x, y in zip(u["logits"], s["logits"]))
+    return ids, lg
+
+
+def _scan_serve(launches: dict) -> None:
+    """Full-width qwen3-8b served in both layouts, tokens and logits bit
+    for bit across layouts: quant, td at sigma 0 with tdc_q 1 and td at
+    the solved policy.  The serve steps pass no key, in the reference as
+    in the port, so every td dense draws the seed of key (0, 0) in both
+    layouts (the keyed forward of `_scan_init` shows the scan's own
+    seeds)."""
+    from repro_torch.models import common
+    cfg = family_arch(SCAN["arch"], "td", SCAN["serve_layers"]).model
+    if (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff,
+            cfg.vocab) != (4096, 32, 8, 128, 12288, 151936):
+        fail(f"scan_serve: qwen3-8b widths {cfg}")
+    td = family_arch(SCAN["arch"], "td", SCAN["serve_layers"])
+    solved = common.resolve_arch_policy(td, device="cuda")
+    td0 = solved.replace(sigma_chain=0.0, tdc_q=1)
+    for mode, arch, pol in (
+            ("quant", family_arch(SCAN["arch"], "quant",
+                                  SCAN["serve_layers"]), None),
+            ("td0", td, td0), ("td", td, solved)):
+        tag = f"scan_serve_{mode}"
+        res = _layout_serves(tag, arch, launches, pol)
+        if mode == "quant":
+            want = res["unrolled"]["counts"]
+        else:
+            want = serve_expected(cfg, SERVE["gen"] - 1)
+            check_launches(f"{tag}_unrolled", res["unrolled"]["counts"], want)
+        check_launches(f"{tag}_stacked", res["stacked"]["counts"], want)
+        ids, lg = _same_serve(res)
+        u, s = res["unrolled"], res["stacked"]
+        print(f"[{tag}] {cfg.name} {mode}, {cfg.n_layers} layers, batch "
+              f"{SERVE['batch']} x {SERVE['prompt_len']}, {SERVE['gen']} "
+              f"new, bf16: stacked against unrolled: tokens equal {ids}, "
+              f"logits of the prefill and {SERVE['gen'] - 1} decode steps "
+              f"equal bit for bit {lg}; prefill {u['prefill']:.2f} / "
+              f"{s['prefill']:.2f} ms, decode {u['decode']:.2f} / "
+              f"{s['decode']:.2f} ms a token (unrolled / stacked)")
+        if not (ids and lg):
+            fail(f"{tag}: the stacked serve differs from the unrolled one")
+
+
+def _scan_train(launches: dict) -> None:
+    """qwen3-8b at full width cut to SCAN's train layers, 8 x 128, in
+    quant mode and td at sigma 0, remat full and dots, in both layouts:
+    losses and gradient norms of every step bit for bit equal; step ms
+    and peak memory of each."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import train
+    from repro_torch.models import common
+    shape = ShapeCfg("cli", TRAIN["seq"], TRAIN["batch"], "train")
+    steps = SCAN["train_steps"]
+    mods = kernel_modules()
+    td = family_arch(SCAN["arch"], "td", SCAN["train_layers"])
+    td0 = common.resolve_arch_policy(td, device="cuda").replace(
+        sigma_chain=0.0, tdc_q=1)
+    for mode in ("quant", "td0"):
+        for remat in ("full", "dots"):
+            base = family_arch(SCAN["arch"], "quant" if mode == "quant"
+                               else "td", SCAN["train_layers"])
+            base = base.replace(train=dataclasses.replace(base.train,
+                                                          remat=remat))
+            cfg = base.model
+            n_micro = base.microbatches_for(shape.name)
+            per_step = train_expected(cfg, n_micro, "quant" if mode ==
+                                      "quant" else "td", remat)
+            got = {}
+            for layout, a in (("unrolled", base),
+                              ("stacked", scan_arch(base))):
+                tag = f"scan_train_{mode}_{remat}_{layout}"
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.memory_allocated() / 2**30
+                _counts_reset(mods)
+                stats: dict = {}
+                with (fixed_policy(td0) if mode == "td0"
+                      else contextlib.nullcontext()):
+                    params, losses = train.run(a, shape, steps, None,
+                                               log_every=steps, seed=0,
+                                               stats=stats)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() / 2**30 - start
+                del params          # not alive through the next run
+                counts = {n: m.launches for n, m in mods.items()}
+                check_launches(tag, counts, {n: c * steps
+                                             for n, c in per_step.items()})
+                launches[tag] = counts
+                got[layout] = (losses, stats["grad_norm"])
+                print(f"[scan_train] {cfg.name} {mode}, {cfg.n_layers} "
+                      f"layers, batch {shape.global_batch} x "
+                      f"{shape.seq_len}, remat {remat}, {layout}: step ms "
+                      f"{[round(t * 1e3, 1) for t in stats['step_s']]}, "
+                      f"peak {peak:.2f} GiB above the {start:.2f} GiB "
+                      f"allocated before the run; losses {losses}; grad "
+                      f"norms {stats['grad_norm']}")
+            same = got["unrolled"] == got["stacked"]
+            print(f"[scan_train] {mode} remat {remat}: losses and grad "
+                  f"norms of {steps} steps bit for bit equal across "
+                  f"layouts: {same}")
+            if not same or not all(math.isfinite(x)
+                                   for x in got["stacked"][0]):
+                fail(f"scan_train {mode} {remat}: stacked {got['stacked']}"
+                     f" against unrolled {got['unrolled']}")
+
+
+def _scan_families(launches: dict) -> None:
+    """The other homogeneous stacks in quant mode, stacked against
+    unrolled, bit for bit: granite-moe-1b-a400m at its 24 layers and
+    rwkv6-1.6b cut to 4."""
+    for name, layers in SCAN["families"]:
+        arch = family_arch(name, "quant", layers)
+        tag = f"scan_{name.split('-')[0]}"
+        res = _layout_serves(tag, arch, launches)
+        if res["stacked"]["counts"] != res["unrolled"]["counts"]:
+            fail(f"{tag}: the stacked serve launches "
+                 f"{res['stacked']['counts']}, the unrolled "
+                 f"{res['unrolled']['counts']}")
+        ids, lg = _same_serve(res)
+        print(f"[{tag}] {name} quant, {arch.model.n_layers} layers: "
+              f"stacked against unrolled: tokens equal {ids}, logits equal "
+              f"bit for bit {lg}")
+        if not (ids and lg):
+            fail(f"{tag}: the stacked serve differs from the unrolled one")
+
+
+def _scan_views() -> None:
+    """The kernels on the layer views of stacked tensors (`torch.unbind`
+    of a stacked KV cache and weight) take them without a copy
+    (``contiguous()`` is the view itself, 16-byte aligned) and give the
+    results of their copies bit for bit.  td_vmm takes fresh codes, never
+    a view."""
+    import torch
+    from repro_torch.kernels.decode_gqa import ops as dec_ops
+    from repro_torch.kernels.flash_attn import ops as fl_ops
+    from repro_torch.kernels.lsq_quant import lsq_quant as lq
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    L, b, s, hkv, hq, d = 4, SERVE["batch"], 160, 8, 32, 128
+    k = torch.randn((L, b, s, hkv, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    v = torch.randn((L, b, s, hkv, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.randn((L, 4096, 1024), generator=gen, device="cuda")
+    q1 = torch.randn((b, hq, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    qs = torch.randn((b, 16, hq, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    lens = torch.full((b,), 150, dtype=torch.int32, device="cuda")
+    off = torch.full((1,), 134, dtype=torch.int32, device="cuda")
+    ok = True
+    for i, (kv, vv, wv) in enumerate(zip(torch.unbind(k), torch.unbind(v),
+                                         torch.unbind(w))):
+        for t in (kv, vv, wv):
+            ok &= t.contiguous() is t and t.data_ptr() % 16 == 0
+            ok &= (t.storage_offset() > 0) == (i > 0)
+        kc, vc, wc = kv.clone(), vv.clone(), wv.clone()
+        ok &= _bits_equal(dec_ops.decode_attention(q1, kv, vv, lens),
+                          dec_ops.decode_attention(q1, kc, vc, lens))
+        ok &= _bits_equal(fl_ops.flash_attention(qs, kv, vv, lens, off),
+                          fl_ops.flash_attention(qs, kc, vc, lens, off))
+        sc = torch.tensor(0.01, device="cuda")
+        ok &= _bits_equal(lq.lsq_quant(wv, sc, -8, 7),
+                          lq.lsq_quant(wc, sc, -8, 7))
+    torch.cuda.synchronize()
+    print(f"[scan_views] decode_gqa, flash_attn and lsq_quant on the {L} "
+          f"layer views of stacked (L, B, S, Hkv, D) caches and an (L, "
+          f"4096, 1024) weight: no copy (contiguous views at their "
+          f"offsets), results equal to their copies' bit for bit: {ok}")
+    if not ok:
+        fail("scan_views: a kernel copies or differs on a layer view")
+
+
+def phase_scan_layers(launches: dict):
+    """The stacked layout (`scan_layers`) at full width: the stacked init
+    against the unrolled one, qwen3-8b served in both layouts (quant, td
+    at sigma 0, td at the solved policy), trained cut to 4 layers (quant
+    and td at sigma 0, remat full and dots), granite-moe and rwkv6 served
+    in quant mode, and the kernels on layer views."""
+    walls = {}
+    t0 = time.monotonic()
+    _scan_init("scan_init", family_arch(SCAN["arch"], "td",
+                                        SCAN["serve_layers"]))
+    for name, fn in (("serve", _scan_serve), ("train", _scan_train),
+                     ("families", _scan_families)):
+        t1 = time.monotonic()
+        fn(launches)
+        walls[name] = time.monotonic() - t1
+    _scan_views()
+    print(f"[scan_layers] walls, s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items())
+        + f"; phase {time.monotonic() - t0:.1f}")
+
+
+def _load_example(name: str):
+    import importlib.util
+    path = ROOT / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(launches: dict):
+    """The four port-side examples in-process on the card, as a user runs
+    them: quickstart_torch, serve_decode_torch (its launches counted),
+    train_qat_lm_torch --small --steps 20 (its loss falling) and
+    hw_design_explorer_torch --scenario edge --corner ss --minimize-vdd
+    (its table written to build/examples/)."""
+    import io
+    import shutil
+    import torch
+    from repro_torch.core import explorer
+    walls = {}
+    out_dir = ROOT / "build" / "examples"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    mods = kernel_modules()
+
+    t0 = time.monotonic()
+    q = _load_example("quickstart_torch").main([])
+    walls["quickstart"] = time.monotonic() - t0
+    if q["winner"] != "td" or not 0 < q["rel"] < 0.1:
+        fail(f"examples: quickstart winner {q['winner']}, rel {q['rel']}")
+
+    t0 = time.monotonic()
+    _counts_reset(mods)
+    ids = _load_example("serve_decode_torch").main([])
+    torch.cuda.synchronize()
+    counts = {n: m.launches for n, m in mods.items()}
+    launches["examples_serve"] = counts
+    walls["serve_decode"] = time.monotonic() - t0
+    print(f"[examples] serve_decode_torch: tokens {tuple(ids.shape)}, "
+          f"launches {counts}")
+    if ids.shape != (4, 24) or not (counts["td_vmm"] and
+                                    counts["flash_attn"] and
+                                    counts["decode_gqa"]):
+        fail(f"examples: serve_decode {tuple(ids.shape)}, {counts}")
+
+    t0 = time.monotonic()
+    ckpt_dir = out_dir / "qat_ckpt"
+    _, losses = _load_example("train_qat_lm_torch").main(
+        ["--small", "--steps", str(EXAMPLES["train_steps"]), "--ckpt-dir",
+         str(ckpt_dir)])
+    walls["train_qat_lm"] = time.monotonic() - t0
+    k = max(1, len(losses) // 10)
+    if len(losses) != EXAMPLES["train_steps"] or \
+            not sum(losses[-k:]) < sum(losses[:k]):
+        fail(f"examples: train_qat_lm losses {losses}")
+
+    t0 = time.monotonic()
+    prev = explorer.set_service(None)
+    buf, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            g = _load_example("hw_design_explorer_torch").main(
+                ["--scenario", "edge", "--corner", "ss", "--minimize-vdd"])
+    finally:
+        explorer.set_service(prev)
+    walls["hw_design_explorer"] = time.monotonic() - t0
+    (out_dir / "explorer_edge_ss.txt").write_text(buf.getvalue()
+                                                  + err.getvalue())
+    table = buf.getvalue().splitlines()
+    print(f"[examples] hw_design_explorer_torch --scenario edge --corner ss "
+          f"--minimize-vdd on {g.e_mac.size} grid values: {len(table)} "
+          f"table lines (build/examples/explorer_edge_ss.txt); "
+          f"{err.getvalue().splitlines()[1:2]}")
+    if not any("winner map" in line for line in table):
+        fail("examples: the explorer printed no winner map")
+    print(f"[examples] walls, s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items()))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
 def phase_profile():
@@ -6033,7 +6484,7 @@ def main() -> None:
                   phase_noise_loop, phase_td_attention,
                   phase_lm_noise_sweep, phase_lm_sweep_families,
                   phase_drift_traces, phase_chaos_serve, phase_chaos_train,
-                  phase_mesh):
+                  phase_mesh, phase_scan_layers, phase_examples):
         gc.collect()           # engines wrapped by `_counted` form cycles
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()

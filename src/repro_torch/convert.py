@@ -34,13 +34,17 @@ def tree_from_numpy(x, device="cpu"):
     return _leaf(x, device)
 
 
-def params_from_jax(tree, cfg, device=None) -> dict:
+def params_from_jax(tree, cfg, device=None, pol=None) -> dict:
     """The port's parameters of model ``cfg`` on ``device`` (None: CUDA)
-    from a numpy copy of the reference's parameter pytree (unstacked
-    layers: ``scan_layers`` off).  A decoder's tree has ``layers`` (one
-    dict a layer: ``ln1``, ``ln2``, the mixer's subtree ``attn``,
-    ``mamba`` or ``timemix``, none for a shared-attention site, and the
-    FFN's ``mlp``, ``moe`` or ``chanmix``, none for a mixer-only layer),
+    from a numpy copy of the reference's parameter pytree, made under the
+    policy ``pol`` (None: the config alone decides the layout).  A
+    decoder's tree has ``layers``: one dict a layer (``ln1``, ``ln2``,
+    the mixer's subtree ``attn``, ``mamba`` or ``timemix``, none for a
+    shared-attention site, and the FFN's ``mlp``, ``moe`` or ``chanmix``,
+    none for a mixer-only layer), or, exactly where the reference stacks
+    (`models.transformer._can_scan(cfg, pol)`: ``scan_layers`` on a
+    homogeneous stack), one such dict whose leaves carry a leading layer
+    axis of ``n_layers``;
     ``shared_attn`` exactly when a layer is a shared-attention site,
     ``adapter`` exactly when it has a stub frontend and ``lm_head``
     exactly when its embeddings are not tied; an enc-dec
@@ -60,15 +64,21 @@ def params_from_jax(tree, cfg, device=None) -> dict:
                              f", expected {sorted(want)} and decoder "
                              "layers with xattn and ln_x")
         return params
-    from repro_torch.models.transformer import _ffn_kind, _has_shared
-    _check_list(params, "layers", cfg.n_layers)
+    from repro_torch.models.transformer import (_can_scan, _ffn_kind,
+                                                _has_shared)
+    if _can_scan(cfg, pol):
+        _check_stacked(params.get("layers"), cfg)
+        layers = [params["layers"]]
+    else:
+        _check_list(params, "layers", cfg.n_layers)
+        layers = params["layers"]
     for name, want in (("adapter", cfg.frontend is not None),
                        ("lm_head", not cfg.tie_embeddings),
                        ("shared_attn", _has_shared(cfg))):
         if (name in params) != want:
             raise ValueError(f"{cfg.name}: the parameter tree "
                              f"{'lacks' if want else 'has'} {name!r}")
-    for i, lp in enumerate(params["layers"]):
+    for i, lp in enumerate(layers):
         want = {"ln1", "ln2", _MIXER_LEAF[cfg.mixer_at(i)],
                 _FFN_LEAF[_ffn_kind(cfg, i)]} - {None}
         if set(lp) != want:
@@ -89,7 +99,26 @@ def _check_list(params: dict, name: str, n: int) -> None:
     layers = params.get(name)
     if not isinstance(layers, list) or len(layers) != n:
         raise ValueError(f"expected a list of {n} per-layer parameter "
-                         f"dicts under {name!r} (scan_layers=False)")
+                         f"dicts under {name!r} (the unrolled layout)")
+
+
+def _check_stacked(layers, cfg) -> None:
+    """A stacked layer tree: a dict whose every leaf has a leading axis of
+    ``cfg.n_layers``."""
+    if not isinstance(layers, dict):
+        raise ValueError(f"{cfg.name}: expected the stacked layout under "
+                         "'layers' (scan_layers on a homogeneous stack), "
+                         f"got a {type(layers).__name__}")
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{path}/{k}")
+        elif t.dim() == 0 or t.shape[0] != cfg.n_layers:
+            raise ValueError(f"{cfg.name}: stacked leaf {path} of shape "
+                             f"{tuple(t.shape)}, expected a leading axis "
+                             f"of {cfg.n_layers} layers")
+    walk(layers, "layers")
 
 
 def resnet_params_from_jax(tree, cfg, device=None) -> dict:

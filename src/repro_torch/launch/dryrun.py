@@ -32,6 +32,8 @@ CLI:
   python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--mesh small]
   python -m repro_torch.launch.dryrun --arch dbrx-132b --shape train_4k --td td
+  python -m repro_torch.launch.dryrun --arch rwkv6-1.6b --shape long_500k \
+      --scan-layers
 
 ``--mesh small`` is (2, n / 2) with n from ``REPRO_DRYRUN_DEVICES``
 (default 8; n = 1 gives (1, 1)); ``--smoke`` runs the archs' smoke
@@ -40,6 +42,7 @@ configs.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -150,22 +153,32 @@ def _scan_corrections(arch, shape) -> dict:
 def cell_arch(arch_name: str, td_mode: str = "precise",
               td_per_layer: str | None = None, scenario: str | None = None,
               corner: str | None = None, td_attn: str | None = None,
-              smoke: bool = False):
+              smoke: bool = False, scan_layers: bool = False):
     arch = (cfgs.get_smoke if smoke else cfgs.get)(arch_name)
     if td_mode != "precise":
         arch = arch.replace(td=TDExecCfg(mode=td_mode))
     if td_per_layer or scenario or corner or td_attn:
         arch = td_cli.apply_td_args(arch, None, td_per_layer, scenario,
                                     corner, td_attn=td_attn)
+    if scan_layers:
+        arch = arch.replace(model=dataclasses.replace(arch.model,
+                                                      scan_layers=True))
     return arch
 
 
 def run_cell(arch_name: str, shape_name: str, mesh, mesh_tag: str,
              td_mode: str = "precise", td_per_layer: str | None = None,
              scenario: str | None = None, corner: str | None = None,
-             td_attn: str | None = None, smoke: bool = False) -> dict:
+             td_attn: str | None = None, smoke: bool = False,
+             scan_layers: bool = False) -> dict:
+    """One cell, counted.  ``scan_layers`` runs it in the stacked layout
+    (where the arch's stack and policy allow it: `transformer._can_scan`):
+    the counter sees every layer of the stacked forward as of the
+    unrolled one, so the FLOPs and collectives equal the unrolled cell's
+    (the reference's XLA cost counts a scan body once and keeps scan
+    cells out of its roofline)."""
     arch = cell_arch(arch_name, td_mode, td_per_layer, scenario, corner,
-                     td_attn, smoke)
+                     td_attn, smoke, scan_layers)
     shape = cfgs.SHAPES[shape_name]
     chips = mesh_lib.mesh_size(mesh)
     dp = mesh_lib.dp_size(mesh)
@@ -245,6 +258,7 @@ def run_cell(arch_name: str, shape_name: str, mesh, mesh_tag: str,
     return {
         "arch": arch_name, "shape": shape_name, "mesh": mesh_tag,
         "td_mode": td_mode, "chips": chips, "ok": True,
+        "scan_layers": bool(arch.model.scan_layers),
         "modelled": "counted work over H100 SXM data-sheet rates; "
                     "not a measurement",
         "n_params": n_params,
@@ -301,7 +315,13 @@ def main(argv=None):
     ap.add_argument("--mesh", default="prod", choices=["prod", "small"])
     ap.add_argument("--smoke", action="store_true",
                     help="the archs' reduced smoke configs")
+    ap.add_argument("--scan-layers", action="store_true",
+                    help="the stacked scan-over-layers layout (the counts "
+                    "equal the unrolled cell's FLOPs and collectives)")
     ap.add_argument("--out", default="artifacts/dryrun")
+    # parsed and not read, as in the reference: --all always runs
+    # cells(include_skips=False)
+    ap.add_argument("--include-skips", action="store_true")
     args = ap.parse_args(argv)
 
     shape, axes, mesh_tag = _mesh_of(args.mesh, args.multi_pod)
@@ -320,14 +340,16 @@ def main(argv=None):
             ("__per_layer" if args.td_per_layer else "") + \
             (f"__attn-{args.td_attn}" if args.td_attn else "") + \
             (f"__{args.scenario}" if args.scenario else "") + \
-            (f"__{args.corner}" if args.corner else "")
+            (f"__{args.corner}" if args.corner else "") + \
+            ("__scan" if args.scan_layers else "")
         out_path = os.path.join(args.out, tag + ".json")
         t0 = time.time()
         try:
             res = run_cell(arch_name, shape_name, mesh, mesh_tag, args.td,
                            td_per_layer=args.td_per_layer,
                            scenario=args.scenario, corner=args.corner,
-                           td_attn=args.td_attn, smoke=args.smoke)
+                           td_attn=args.td_attn, smoke=args.smoke,
+                           scan_layers=args.scan_layers)
             n_ok += 1
             m = res["memory"]
             print(f"[OK] {tag}: dominant={res['roofline']['dominant']} "

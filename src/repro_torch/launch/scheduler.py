@@ -277,7 +277,7 @@ class ContinuousBatchingEngine:
         caches = transformer.init_caches(self.capacity, self.s_cache,
                                          self.cfg, torch.bfloat16,
                                          device=self.device,
-                                         per_row_idx=True)
+                                         per_row_idx=True, pol=self.pol)
         self._state = {"layers": caches, "enc_out": None}
         self._tok = torch.zeros((self.capacity, 1), dtype=torch.int32,
                                 device=self.device)

@@ -103,18 +103,21 @@ def materialize(tree, mesh):
 def decode_state_shapes(arch: ArchConfig, shape: ShapeCfg) -> dict:
     """The decode-state tree as fake tensors (no allocation; called with
     no mesh active): {"layers": caches, "enc_out": None or (B, 8192,
-    d)}."""
-    from repro_torch.models import encdec, transformer
+    d)}.  A decoder's caches are stacked exactly when its forward scans
+    under the arch's policy (`transformer.init_caches(pol=)`)."""
+    from repro_torch.models import common, encdec, transformer
     cfg = arch.model
     b, s = shape.global_batch, shape.seq_len
-    with fake_mode():
-        if cfg.family == "encdec":
+    if cfg.family == "encdec":
+        with fake_mode():
             caches = encdec.init_caches(b, s, cfg, CACHE_DT, "cpu")
             enc_out = torch.zeros((b, CROSS_MEMORY_CAP, cfg.d_model),
                                   dtype=EMBED_DT)
-            return {"layers": caches, "enc_out": enc_out}
-        caches = transformer.init_caches(b, s, cfg, CACHE_DT, "cpu")
-        return {"layers": caches, "enc_out": None}
+        return {"layers": caches, "enc_out": enc_out}
+    pol = common.resolve_arch_policy(arch, device="cpu")
+    with fake_mode():
+        caches = transformer.init_caches(b, s, cfg, CACHE_DT, "cpu", pol=pol)
+    return {"layers": caches, "enc_out": None}
 
 
 def decode_input_specs(arch: ArchConfig, shape: ShapeCfg, mesh) -> dict:

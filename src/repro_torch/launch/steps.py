@@ -215,17 +215,26 @@ def build_insert_step():
     Each layer's K/V rows are written at the slot, as a prefix when the
     prefill cache is shorter than the decode cache; the slot's fill index
     is set to ``length``, the true prompt length, which is what masks the
-    pad junk the bucketed prefill wrote past it.  ``slot`` and ``length``
-    are host ints: nothing here waits for the device."""
+    pad junk the bucketed prefill wrote past it.  Stacked caches (the
+    scan layout) are written for all layers at once, along their batch
+    axis, dim 1.  ``slot`` and ``length`` are host ints: nothing here
+    waits for the device."""
+
+    def ins(dst, src, slot, length):
+        n = src["k"].shape[-3]
+        dst["k"][..., slot, :n, :, :] = src["k"][..., 0, :, :, :]
+        dst["v"][..., slot, :n, :, :] = src["v"][..., 0, :, :, :]
+        # fill_ passes the int as a kernel argument; item assignment
+        # would copy it from the host
+        dst["idx"][slot].fill_(length)
 
     def insert_step(dst_state, src_state, slot: int, length: int):
-        for dst, src in zip(dst_state["layers"], src_state["layers"]):
-            n = src["k"].shape[1]
-            dst["k"][slot, :n] = src["k"][0]
-            dst["v"][slot, :n] = src["v"][0]
-            # fill_ passes the int as a kernel argument; item assignment
-            # would copy it from the host
-            dst["idx"][slot].fill_(length)
+        dst, src = dst_state["layers"], src_state["layers"]
+        if isinstance(dst, dict):
+            ins(dst, src, slot, length)
+        else:
+            for d, s_ in zip(dst, src):
+                ins(d, s_, slot, length)
         return dst_state
 
     return insert_step

@@ -6,8 +6,9 @@
   prefill(params, batch, cfg, pol, s_cache)     -> (last_logits, state)
   decode_step(params, tok, state, cfg, pol)     -> (logits, state)
 
-`state` is {"layers": [...per-layer cache...], "enc_out": None or the
-encoder's output (B, S_src, d)}.  A batch holds "tokens" and, for a stub
+`state` is {"layers": [...per-layer cache...] or one stacked cache tree
+(`transformer.init_caches(pol=)`), "enc_out": None or the encoder's output
+(B, S_src, d)}.  A batch holds "tokens" and, for a stub
 frontend or an enc-dec model, "embeds" (the precomputed patch or frame
 embeddings); a decoder's train loss skips the logits of the frontend
 positions.  With ``true_len`` the decoder prefill serves a right-padded
@@ -53,7 +54,8 @@ def _dec_prefill(params, batch, cfg: ModelCfg, pol, s_cache: int,
                  cache_dtype=torch.bfloat16, true_len=None):
     b = batch["tokens"].shape[0]
     dev = batch["tokens"].device
-    caches = transformer.init_caches(b, s_cache, cfg, cache_dtype, dev)
+    caches = transformer.init_caches(b, s_cache, cfg, cache_dtype, dev,
+                                     pol=pol)
     # lm_head runs over every padded row, as in the reference: td_vmm's
     # noise is hashed over the (M, N) the call is given
     logits, caches, _ = transformer.forward(params, batch, cfg, pol,
@@ -71,9 +73,13 @@ def _dec_prefill(params, batch, cfg: ModelCfg, pol, s_cache: int,
 def _dec_decode(params, tok, state, cfg: ModelCfg, pol):
     caches = state["layers"]
     # the position is the fill index of the first KV cache (all equal
-    # across layers; a per-row (B,) vector for ragged serving slots); a
-    # pure-SSM model has none, and no RoPE to read it
-    idx = next((c["idx"] for c in caches if "idx" in c), None)
+    # across layers; a per-row (B,) vector for ragged serving slots), or
+    # the one index of stacked caches; a pure-SSM model has none, and no
+    # RoPE to read it
+    if isinstance(caches, dict):
+        idx = caches.get("idx")
+    else:
+        idx = next((c["idx"] for c in caches if "idx" in c), None)
     if idx is None:
         pos = torch.zeros((1,), dtype=torch.int32, device=tok.device)
     elif isinstance(idx, torch.Tensor):

@@ -1,6 +1,6 @@
 """The decoder-only stack (port of `repro/models/transformer.py`): the
 dense, MoE, hybrid (zamba2) and attention-free (rwkv6) families through
-per-layer mixer dispatch, with the layer loop unrolled.
+per-layer mixer dispatch, in the unrolled or the stacked layout.
 
 Layer anatomy (pre-norm residual):
     x += mixer(ln1(x))      mixer in {attn, shared_attn, mamba2, rwkv6}
@@ -27,6 +27,20 @@ Keys: layer i's mixer denses draw their noise seeds under
 ``fold_key(key, 2i)``, its FFN under ``fold_key(key, 2i + 1)``, lm_head
 under ``fold_key(key, 10_000)``, as in the reference.  `_walk` (the
 layers) and `_head` hold that order for `forward` and `forward_lanes`.
+
+The stacked layout (``cfg.scan_layers``, the reference's scan over
+layers): on a homogeneous stack (`_is_homogeneous`: one mixer kind, one
+FFN kind, no shared-attention site) under a homogeneous policy
+(`_can_scan`), ``params["layers"]`` is one dict of tensors with a
+leading layer axis (L, ...), and the decode caches are one dict too
+(K/V (L, B, S, Hkv, Dh), SSM states (L, B, ...)) whose fill index
+``idx`` is one host int, or one (B,) tensor, for all layers: the
+reference stacks it to (L,) or (L, B) of equal rows.  Layer i of such a
+forward runs as the reference's scan body does: at ``pol_at(pol, 0)``,
+its mixer denses seeded under ``fold_key(key, i, 0)``, its FFN under
+``fold_key(key, i, 1)``, and its aux losses summed as one sum over the
+stacked values.  The layers' weights are views, one ``torch.unbind`` a
+leaf a forward, so that autograd stacks a weight's gradients once.
 
 `forward_lanes` runs P probes of the batched noise search (the LM
 per-layer sweep of `benchmarks/bench_noise_tolerance._lm_eval_fns`) in one
@@ -88,13 +102,99 @@ def _has_shared(cfg: ModelCfg) -> bool:
     return any(cfg.mixer_at(i) == "shared_attn" for i in range(cfg.n_layers))
 
 
+def _is_homogeneous(cfg: ModelCfg) -> bool:
+    """Whether every layer has the same structure (the stacked layout's
+    condition): one mixer kind, one FFN kind, no shared-attention site."""
+    mixers = {cfg.mixer_at(i) for i in range(cfg.n_layers)}
+    ffns = {_ffn_kind(cfg, i) for i in range(cfg.n_layers)}
+    return len(mixers) == 1 and len(ffns) == 1 and \
+        "shared_attn" not in mixers
+
+
+def _can_scan(cfg: ModelCfg, pol) -> bool:
+    """Whether ``cfg`` runs in the stacked layout under ``pol``: a
+    ``scan_layers`` config with a homogeneous stack, unless ``pol`` is a
+    heterogeneous `NetworkPolicy` (per-layer policies, or any
+    tensor-valued field, such as a sweep's per-lane sigmas), whose layers
+    unroll.  ``pol`` None asks of the config alone."""
+    if not (cfg.scan_layers and _is_homogeneous(cfg)):
+        return False
+    return not (isinstance(pol, td_policy.NetworkPolicy)
+                and not pol.homogeneous)
+
+
+def _layer_views(layers, n: int) -> list:
+    """Per-layer trees of ``layers``: a list as it is, a stacked tree as
+    views of its layers (one ``torch.unbind`` a leaf; the fill index
+    ``idx`` of stacked caches, one for all layers, goes to every layer)."""
+    if isinstance(layers, list):
+        return layers
+    out: list = [{} for _ in range(n)]
+    for name, v in layers.items():
+        if isinstance(v, dict):
+            subs = _layer_views(v, n)
+        elif name == "idx":
+            subs = [v] * n
+        else:
+            subs = torch.unbind(v)
+        for o, sub in zip(out, subs):
+            o[name] = sub
+    return out
+
+
+def _stack_layers(trees: list, like=None, views=None) -> dict:
+    """The stacked tree of per-layer ``trees`` (each leaf stacked along a
+    new leading axis; a cache's fill index taken from the last layer, all
+    layers' being equal).  With ``like``, a stacked tree, and ``views``,
+    its per-layer views (`_layer_views`): a leaf that every layer returned
+    as its view, written in place (the KV caches), stays ``like``'s
+    stacked tensor, with no copy."""
+    out = {}
+    for name, v in trees[0].items():
+        sub = [t[name] for t in trees]
+        if isinstance(v, dict):
+            out[name] = _stack_layers(
+                sub, None if like is None else like[name],
+                None if like is None else [w[name] for w in views])
+        elif name == "idx":
+            out[name] = sub[-1]
+        elif like is not None and all(a is w[name]
+                                      for a, w in zip(sub, views)):
+            out[name] = like[name]
+        else:
+            out[name] = torch.stack(sub)
+    return out
+
+
+def _stacked_like(tree: dict, n: int, make) -> dict:
+    """A stacked tree for ``n`` layers shaped as the one-layer ``tree``,
+    each leaf ``make((n, *shape), dtype, device)``; a fill index ``idx``
+    is kept as it is (one for all layers)."""
+    return {k: _stacked_like(v, n, make) if isinstance(v, dict)
+            else v if k == "idx"
+            else make((n, *v.shape), dtype=v.dtype, device=v.device)
+            for k, v in tree.items()}
+
+
+def _put_layer(stacked: dict, tree: dict, i: int) -> None:
+    """Copy one layer's parameter ``tree`` into row i of ``stacked``."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _put_layer(stacked[k], v, i)
+        else:
+            stacked[k][i] = v
+
+
 def init_params(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
                 device=None) -> dict:
     """Seeded random parameters with the reference's distributions and
     layout: every layer has ``ln1`` and ``ln2`` (a mixer-only layer's
     ``ln2`` too), and a shared attention block lives once, under
     ``shared_attn``, initialised under the top-level policy.  Each tensor
-    is drawn in float32 on ``device`` and stored in ``dtype``."""
+    is drawn in float32 on ``device`` and stored in ``dtype``.  When
+    `_can_scan` holds, ``layers`` is one stacked tree, each layer drawn as
+    the unrolled init draws it and copied into its row: the stacked
+    params equal the unrolled ones stacked, bit for bit."""
     _check_supported(cfg)
     dev = device_mod.resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -108,7 +208,8 @@ def init_params(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
     if _has_shared(cfg):
         params["shared_attn"] = attention.attn_init(gen, cfg, top, dtype,
                                                     dev)
-    layers = []
+    scan = _can_scan(cfg, pol)
+    layers: list | dict = []
     for i in range(cfg.n_layers):
         pol_i = common.pol_at(pol, i)
         lp = {"ln1": common.rmsnorm_init(cfg.d_model, dtype, dev),
@@ -129,7 +230,12 @@ def init_params(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
                                      dev)
         elif fk == "rwkv_cm":
             lp["chanmix"] = rwkv6.chanmix_init(gen, cfg, pol_i, dtype, dev)
-        layers.append(lp)
+        if not scan:
+            layers.append(lp)
+            continue
+        if i == 0:
+            layers = _stacked_like(lp, cfg.n_layers, torch.empty)
+        _put_layer(layers, lp, i)
     params["layers"] = layers
     params["final_norm"] = common.rmsnorm_init(cfg.d_model, dtype, dev)
     if not cfg.tie_embeddings:
@@ -142,18 +248,23 @@ def init_params(seed: int, cfg: ModelCfg, pol, dtype=torch.float32,
 def _layer_apply(lp: dict, shared: dict | None, x: torch.Tensor,
                  cfg: ModelCfg, dense, i: int, positions: torch.Tensor,
                  cache: dict | None, key, attn_pols=None, pol=None,
-                 moe=None) -> tuple[torch.Tensor, dict | None, dict]:
+                 moe=None, fold=None) -> tuple[torch.Tensor, dict | None,
+                                                dict]:
+    """One layer: its structure and policy those of layer ``i``, its
+    mixer's and FFN's key paths ``fold`` (a pair of tuples; None: the
+    unrolled ``(2i,)`` and ``(2i + 1,)``)."""
     mixer = cfg.mixer_at(i)
     # the shared block's denses run at the top-level policy: layer None
     at = None if mixer == "shared_attn" else i
+    f_mix, f_ffn = ((2 * i,), (2 * i + 1,)) if fold is None else fold
 
     def mix(p, h, j):
-        return dense(at, (2 * i, j), p, h)
+        return dense(at, (*f_mix, j), p, h)
 
     def mlp(p, h, j):
-        return dense(i, (2 * i + 1, j), p, h)
+        return dense(i, (*f_ffn, j), p, h)
 
-    kmix = common.fold_key(key, 2 * i)
+    kmix = common.fold_key(key, *f_mix)
     h = common.rmsnorm(lp["ln1"], x, cfg.rms_eps)
     if mixer in ("attn", "shared_attn"):
         y, new_cache = attention.attention(
@@ -178,7 +289,7 @@ def _layer_apply(lp: dict, shared: dict | None, x: torch.Tensor,
         if moe is None:
             y, aux = ffn.moe_ffn(lp["moe"], h, cfg.moe,
                                  common.pol_at(pol, i),
-                                 common.fold_key(key, 2 * i + 1))
+                                 common.fold_key(key, *f_ffn))
         else:
             y, aux = moe(i, lp["moe"], h), {}
         return x + y, new_cache, aux
@@ -212,28 +323,42 @@ def _dots_contexts():
 
 def _walk(params: dict, x: torch.Tensor, cfg: ModelCfg, dense,
           positions: torch.Tensor, key=None, attn_pols=None,
-          caches: list | None = None, remat: str = "none",
-          layers: range | None = None, pol=None, moe=None
-          ) -> tuple[torch.Tensor, list, dict]:
+          caches: list | dict | None = None, remat: str = "none",
+          layers: range | None = None, pol=None, moe=None,
+          scan: bool = False) -> tuple[torch.Tensor, list | dict, dict]:
     """The decoder's layers in order (``layers``: a range of them, all by
-    default), shared by `forward` and `forward_lanes`.  ``dense(i, fold,
-    p, h)`` computes a dense of layer i with params p on h, i None for a
-    dense at the top-level policy (the shared attention block's); ``fold``
-    is the dense's key path from the forward's key, ``(2i, j)`` for the
-    mixer's j-th dense and ``(2i + 1, j)`` for the FFN's.  ``key`` seeds
-    TD attention (``fold_key(key, 2i, 4)``) and the MoE's experts, which
-    run at ``pol_at(pol, i)`` (`ffn.moe_ffn`); ``moe(i, p, h)``, when
-    given, computes layer i's MoE FFN in their place (no aux losses).
+    default), shared by `forward` and `forward_lanes`; the parameters and
+    caches in either layout.  ``dense(i, fold, p, h)`` computes a dense of
+    layer i with params p on h, i None for a dense at the top-level policy
+    (the shared attention block's); ``fold`` is the dense's key path from
+    the forward's key, ``(2i, j)`` for the mixer's j-th dense and ``(2i +
+    1, j)`` for the FFN's.  ``key`` seeds TD attention (``fold_key(key,
+    2i, 4)``) and the MoE's experts (``fold_key(key, 2i + 1)``), which run
+    at ``pol_at(pol, i)`` (`ffn.moe_ffn`); ``moe(i, p, h)``, when given,
+    computes layer i's MoE FFN in their place (no aux losses).  ``scan``
+    runs the reference's scan body instead: layer i at layer 0's structure
+    and policy, on the key paths ``(i, 0, j)`` and ``(i, 1, j)`` (TD
+    attention ``(i, 0, 4)``, the experts ``(i, 1)``), its aux losses
+    summed as one sum over the layers, list caches stacked first.
     ``remat``: "full" recomputes each layer in the backward from its
     input, "dots" keeps its unbatched matmuls' results and recomputes the
-    rest.  Returns (x, the layers' new caches, None where a layer has no
-    cache, the layers' aux losses summed in layer order)."""
-    new_caches: list = [None] * cfg.n_layers
+    rest.  Returns (x, the layers' new caches: stacked when scanning or
+    when they came stacked, else a list with None where a layer has no
+    cache, the layers' aux losses)."""
+    n = cfg.n_layers
+    lps = _layer_views(params["layers"], n)
+    stacked = isinstance(caches, dict)
+    if scan and isinstance(caches, list):
+        caches, stacked = _stack_layers(caches), True
+    views = None if caches is None else _layer_views(caches, n)
+    new_caches: list = [None] * n
     aux_all: dict = {}
-    for i in (range(cfg.n_layers) if layers is None else layers):
-        cache = caches[i] if caches is not None else None
-        args = (params["layers"][i], params.get("shared_attn"), x, cfg,
-                dense, i, positions, cache, key, attn_pols, pol, moe)
+    auxes: list = []
+    for i in (range(n) if layers is None else layers):
+        cache = views[i] if views is not None else None
+        at, fold = (0, ((i, 0), (i, 1))) if scan else (i, None)
+        args = (lps[i], params.get("shared_attn"), x, cfg, dense, at,
+                positions, cache, key, attn_pols, pol, moe, fold)
         if remat == "none":
             x, new_caches[i], aux = _layer_apply(*args)
         else:
@@ -246,8 +371,16 @@ def _walk(params: dict, x: torch.Tensor, cfg: ModelCfg, dense,
         # whole in d (the tensor-parallel partial sums reduced)
         x = common.maybe_constrain(x, common.batch_sharding_axes(), None,
                                    None)
+        if scan:
+            auxes.append(aux)
+            continue
         for name, v in aux.items():
             aux_all[name] = aux_all[name] + v if name in aux_all else v
+    if auxes and auxes[0]:
+        aux_all = {name: torch.stack([a[name] for a in auxes]).sum()
+                   for name in auxes[0]}
+    if stacked:
+        return x, _stack_layers(new_caches, caches, views), aux_all
     return x, new_caches, aux_all
 
 
@@ -292,13 +425,21 @@ def _embed(params: dict, batch: dict, cfg: ModelCfg, pol) -> torch.Tensor:
 
 
 def forward(params: dict, batch: dict, cfg: ModelCfg, pol,
-            caches: list | None = None,
+            caches: list | dict | None = None,
             positions: torch.Tensor | None = None,
             key=None, remat: str = "none"
-            ) -> tuple[torch.Tensor, list | None, dict]:
+            ) -> tuple[torch.Tensor, list | dict | None, dict]:
     """Returns (logits, new_caches, aux).  batch: {"tokens": (B, S)} and,
     for a stub frontend, {"embeds": (B, Nv, d_frontend)}: the logits then
     cover the Nv frontend positions first.
+
+    The parameters and caches come in either layout.  When `_can_scan`
+    holds the layers run as the reference's scan (the module docstring's
+    seeds and aux sum) and the new caches come back stacked (list caches
+    are stacked first, as the reference stacks them); a list of layer
+    parameters is read in place, the values a stack of it would hold.
+    Otherwise the layers unroll, on views of stacked parameters, and the
+    caches come back in the layout they came in.
 
     ``remat="full"`` recomputes each layer in the backward
     (`torch.utils.checkpoint`, the reference's `jax.checkpoint`), keeping
@@ -318,7 +459,7 @@ def forward(params: dict, batch: dict, cfg: ModelCfg, pol,
         positions = torch.arange(x.shape[1], device=x.device)
     x, new_caches, aux = _walk(params, x, cfg, _policy_dense(pol, key),
                                positions, key, common.pol_attn(pol), caches,
-                               remat, pol=pol)
+                               remat, pol=pol, scan=_can_scan(cfg, pol))
     logits = _head(params, x, cfg, common.pol_top(pol), key)
     return logits, (new_caches if caches is not None else None), aux
 
@@ -429,22 +570,33 @@ def forward_lanes(params: dict, batch: dict, cfg: ModelCfg, base_pol,
                         for p in range(p_lanes)])
 
 
+def _layer_cache(i: int, b: int, s_cache: int, cfg: ModelCfg, dtype, dev,
+                 per_row_idx: bool) -> dict:
+    mixer = cfg.mixer_at(i)
+    if mixer in ("attn", "shared_attn"):
+        return attention.init_cache(b, s_cache, cfg, dtype, dev, per_row_idx)
+    if mixer == "mamba2":
+        return mamba2.init_state(b, cfg, torch.float32, dev)
+    return rwkv6.init_state(b, cfg, torch.float32, dev)
+
+
 def init_caches(b: int, s_cache: int, cfg: ModelCfg, dtype=torch.bfloat16,
-                device=None, per_row_idx: bool = False) -> list:
+                device=None, per_row_idx: bool = False, pol=None
+                ) -> list | dict:
     """One cache per layer: a KV cache (``dtype``) for an attention or
     shared-attention layer, a float32 decode state for a mamba2 or rwkv6
     layer, whatever ``dtype``.  ``per_row_idx`` builds the serving engine's
-    ragged-slot KV caches (one fill index per batch row)."""
+    ragged-slot KV caches (one fill index per batch row).  ``pol`` is the
+    policy the forward will run under: when `_can_scan(cfg, pol)` holds
+    the caches are one stacked tree, zeros with one fill index (a
+    heterogeneous `NetworkPolicy` keeps the list on a ``scan_layers``
+    config; None asks of the config alone)."""
     _check_supported(cfg)
     dev = common.state_device(device)
-    caches = []
-    for i in range(cfg.n_layers):
-        mixer = cfg.mixer_at(i)
-        if mixer in ("attn", "shared_attn"):
-            caches.append(attention.init_cache(b, s_cache, cfg, dtype, dev,
-                                               per_row_idx))
-        elif mixer == "mamba2":
-            caches.append(mamba2.init_state(b, cfg, torch.float32, dev))
-        else:
-            caches.append(rwkv6.init_state(b, cfg, torch.float32, dev))
-    return common.place_state(caches)
+    if _can_scan(cfg, pol):
+        one = _layer_cache(0, b, s_cache, cfg, dtype, dev, per_row_idx)
+        return common.place_state(_stacked_like(one, cfg.n_layers,
+                                                torch.zeros))
+    return common.place_state([
+        _layer_cache(i, b, s_cache, cfg, dtype, dev, per_row_idx)
+        for i in range(cfg.n_layers)])

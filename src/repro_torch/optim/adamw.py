@@ -81,10 +81,32 @@ def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return g.redistribute(p.device_mesh, pl)
 
 
+def _unrolled_leaves(tree) -> list:
+    """The leaves of ``tree`` in the unrolled layout's order: a decoder's
+    stacked ``layers`` (a dict of (L, ...) leaves) gives layer 0's slices,
+    then layer 1's, as the list of per-layer dicts would."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            v = tree[k]
+            if k == "layers" and isinstance(v, dict):
+                stacked = [l for _, l in tree_leaves_with_path(v)]
+                out += [l[i] for i in range(stacked[0].shape[0])
+                        for l in stacked]
+            else:
+                out += _unrolled_leaves(v)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [l for v in tree for l in _unrolled_leaves(v)]
+    return [tree]
+
+
 def global_norm(tree) -> torch.Tensor:
-    leaves = [l for _, l in tree_leaves_with_path(tree)]
+    """The gradients' global norm, a sum of per-leaf sums of squares taken
+    in the unrolled layout's order (stacked layers slice by slice), so
+    that the two layouts of one model clip alike, bit for bit."""
     return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32)))
-                          for l in leaves))
+                          for l in _unrolled_leaves(tree)))
 
 
 def _is_decay_param(path: str) -> bool:

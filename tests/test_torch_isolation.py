@@ -1,9 +1,12 @@
-"""The port stands alone: no module of `repro_torch`, and not
-`chip_smoke.py`, imports jax or the reference package `repro`, and the
-port's entry points run on CUDA by default, raising (not falling back to
-the CPU) where there is none."""
+"""The port stands alone: no module of `repro_torch`, not
+`chip_smoke.py` and no port-side example (`examples/*_torch.py`) imports
+jax or the reference package `repro`, and the port's entry points and
+examples run on CUDA by default, raising (not falling back to the CPU)
+where there is none."""
 import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import ast
+import dataclasses
+import importlib.util
 import pathlib
 import subprocess
 import sys
@@ -13,7 +16,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -52,6 +56,8 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 runpy.run_path({str(ROOT / "chip_smoke.py")!r}, run_name="chip_smoke")
+for path in {[str(p) for p in EXAMPLES]!r}:
+    runpy.run_path(path, run_name="example")
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in {BANNED!r} and sys.modules[n] is not None)
 assert not leaked, leaked
@@ -90,6 +96,47 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     # an explicit CPU device runs
     caches = transformer.init_caches(1, 4, cfg, device="cpu")
     assert caches[0]["k"].device.type == "cpu"
+    # the stacked caches of a scan config, under its policy
+    scan = dataclasses.replace(cfg, scan_layers=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_caches(1, 4, scan, pol=quant_policy())
+    caches = transformer.init_caches(1, 4, scan, device="cpu",
+                                     pol=quant_policy())
+    assert caches["k"].device.type == "cpu"
+    assert caches["k"].shape[0] == cfg.n_layers
+
+
+def _example(path: pathlib.Path):
+    spec = importlib.util.spec_from_file_location(f"ex_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# each example's smallest run (its device left to the default)
+EXAMPLE_ARGS = {
+    "quickstart_torch": [],
+    "serve_decode_torch": ["--batch", "1", "--prompt-len", "2", "--gen", "2"],
+    "train_qat_lm_torch": ["--small", "--steps", "1"],
+    "hw_design_explorer_torch": ["--grid", "n=16", "bits=4", "sigma=2.0",
+                                 "--format", "json"],
+}
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.stem)
+def test_examples_default_to_cuda_and_raise_without_it(path, monkeypatch,
+                                                       tmp_path):
+    from repro_torch.core import explorer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prev = explorer.set_service(None)
+    args = EXAMPLE_ARGS[path.stem]
+    if path.stem == "train_qat_lm_torch":
+        args = args + ["--ckpt-dir", str(tmp_path)]
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            _example(path).main(args)
+    finally:
+        explorer.set_service(prev)
 
 
 def test_kernel_wrappers_use_plain_version_only_for_cpu_tensors():

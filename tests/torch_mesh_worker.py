@@ -3,6 +3,7 @@ sharding on real CPU processes, the gloo backend over a `FileStore`.
 
     python tests/torch_mesh_worker.py DIR 4    # 4 ranks: (2, 2) and (4, 1)
     python tests/torch_mesh_worker.py DIR 1    # 1 rank: the (1, 1) search
+    python tests/torch_mesh_worker.py DIR 4 scan   # the stacked layout
 
 Each rank writes ``DIR/rank<r>.json``.  Four ranks check: the smoke
 decoder's forward with parameters placed by `param_specs` on a (2, 2)
@@ -11,7 +12,10 @@ with ``mesh=`` (4, 1), whole and chunked, against the unsharded one, bit
 for bit; a checkpoint restored onto placements, bit for bit.  One rank
 writes the searches of `probe_eval` on a (1, 1) mesh, for the test to
 hold against the reference's `TestMeshShardedProbes`, and serves the
-smoke qwen3-8b on it against the plain serve.
+smoke qwen3-8b on it against the plain serve.  With ``scan``, four ranks
+serve the stacked (``scan_layers``) smoke qwen3-8b on a (2, 2) mesh
+against the unsharded stacked serve and the unrolled serve on the mesh,
+and restore a stacked checkpoint onto placements.
 """
 import json
 import os
@@ -63,7 +67,7 @@ def _same(a, b) -> bool:
                for k in ("rel_drop", "sigma_max", "acc_clean"))
 
 
-def run(rank: int, world: int, out: str) -> None:
+def run(rank: int, world: int, out: str, mode: str = "") -> None:
     torch.set_num_threads(1)
     store = dist.FileStore(os.path.join(out, "store"), world)
     dist.init_process_group("gloo", store=store, rank=rank,
@@ -73,7 +77,10 @@ def run(rank: int, world: int, out: str) -> None:
     from repro_torch.launch import mesh as mesh_lib
     doc: dict = {}
     key = prng.key(0)
-    if world == 1:
+    if mode == "scan":
+        doc.update(_scan_serve(mesh_lib))
+        doc.update(_restore(mesh_lib, out, rank, scan=True))
+    elif world == 1:
         mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), device="cpu")
         kw = dict(SEARCH, key=key, device="cpu")
         for name, extra in [("plain", {}), ("meshed", {"mesh": mesh}),
@@ -114,11 +121,46 @@ def _serve(mesh) -> dict:
             "steps": len(meshed["logits"])}
 
 
-def _smoke():
+def _scan_serve(mesh_lib) -> dict:
+    """The stacked smoke qwen3-8b (quant, float32) served on a (2, 2)
+    mesh: tokens equal to the unsharded serve's and logits within 1e-5
+    of their scale (the tensor-parallel partial sums add in another
+    order); its logits equal the unrolled layout's on the same mesh."""
+    import dataclasses
+    import repro_torch.configs as cfgs
+    from repro_torch.configs.base import TrainCfg
+    from repro_torch.launch import serve, td_cli
+    from repro_torch.models import transformer
+    loop = td_cli.apply_td_args(cfgs.get_smoke("qwen3-8b"), "quant").replace(
+        train=TrainCfg(compute_dtype="float32"))
+    scan = loop.replace(model=dataclasses.replace(loop.model,
+                                                  scan_layers=True))
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device="cpu")
+    runs = {}
+    for name, arch, m in (("plain", scan, None), ("mesh", scan, mesh),
+                          ("loop", loop, mesh)):
+        runs[name] = {"logits": []}
+        runs[name]["ids"] = serve.run(arch, 4, 8, 4, device="cpu",
+                                      stats=runs[name], mesh=m)
+    want = torch.stack(runs["plain"]["logits"])
+    got = torch.stack(runs["mesh"]["logits"])
+    err = float((got - want).abs().max())
+    return {"stacked": transformer._can_scan(scan.model, None),
+            "serve_close": err <= 1e-5 * float(want.abs().max()),
+            "serve_max_err": err,
+            "tokens_equal": bool(torch.equal(runs["plain"]["ids"],
+                                             runs["mesh"]["ids"])),
+            "layouts_equal": bool(torch.equal(
+                got, torch.stack(runs["loop"]["logits"])))}
+
+
+def _smoke(scan: bool = False):
+    import dataclasses
     import repro_torch.configs as cfgs
     from repro_torch.models import get_api
     from repro_torch.tdsim import policy as td_policy
-    cfg = cfgs.get_smoke("granite-8b").model
+    cfg = dataclasses.replace(cfgs.get_smoke("granite-8b").model,
+                              scan_layers=scan)
     params = get_api(cfg)["init"](0, cfg, td_policy.PRECISE, device="cpu")
     return cfg, params
 
@@ -159,10 +201,10 @@ def _leaves(tree):
     return [t for _, t in adamw.tree_leaves_with_path(tree)]
 
 
-def _restore(mesh_lib, out: str, rank: int) -> dict:
+def _restore(mesh_lib, out: str, rank: int, scan: bool = False) -> dict:
     from repro_torch.checkpoint import ckpt
     from repro_torch.launch import sharding
-    cfg, params = _smoke()
+    cfg, params = _smoke(scan)
     mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device="cpu")
     path = os.path.join(out, "ckpt")
     if rank == 0:
@@ -196,10 +238,11 @@ def _paths(tree):
 
 def main() -> None:
     out, world = sys.argv[1], int(sys.argv[2])
+    mode = sys.argv[3] if len(sys.argv) > 3 else ""
     if world == 1:
-        run(0, 1, out)
+        run(0, 1, out, mode)
     else:
-        mp.start_processes(run, args=(world, out), nprocs=world,
+        mp.start_processes(run, args=(world, out, mode), nprocs=world,
                            start_method="spawn")
 
 
