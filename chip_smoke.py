@@ -77,7 +77,7 @@
    CPU (serve tokens, train losses), and the kernels at this path's
    shapes: td_vmm's 32-lane expert calls at M 160, 60 and 8 bit for bit
    against the plain version and 32 single launches, flash_attn at D 64
-   in bf16 (the CUDA-core path) and decode_gqa at D 64, g 2, timed
+   in bf16 (the tensor cores) and decode_gqa at D 64, g 2, timed
    against SDPA; then `phase_dense_configs`: qwen2.5-3b and qwen3-4b at
    their published widths and depths (36 layers each) served in a fixed
    batch of 4 x 128 prompts and 8 new tokens, decode_gqa at g 8, D 128
@@ -246,7 +246,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 SERVE = dict(batch=4, prompt_len=128, gen=16)
 # device kernel names of each port kernel, for the profile
@@ -1023,16 +1023,18 @@ def _i32(vals):
     return torch.tensor(vals, dtype=torch.int32, device="cuda")
 
 
-def flash_bound(b, sq, kv_lens, hq, hkv, d, causal):
+def flash_bound(b, sq, kv_lens, hq, hkv, d, causal, elem=2,
+                op_type="bf16"):
     """Bound of one flash_attn call (q_offset 0): q and o once, the live
-    key prefix of k and v once (bf16), 4 D operations per live (query,
-    key) pair."""
+    key prefix of k and v once (``elem`` bytes an element: bf16 2, f32 4),
+    4 D operations per live (query, key) pair at ``op_type``'s peak (f32:
+    the CUDA cores' 67 TFLOP/s)."""
     pairs = 0
     for n in kv_lens:
         for i in range(sq):
             pairs += min(n, i + 1) if causal else n
-    return bound_ms(2 * (2 * b * sq * hq * d + 2 * sum(kv_lens) * hkv * d),
-                    4 * pairs * hq * d, "bf16")
+    return bound_ms(elem * (2 * b * sq * hq * d + 2 * sum(kv_lens) * hkv * d),
+                    4 * pairs * hq * d, op_type)
 
 
 def phase_flash(rows: list):
@@ -1041,8 +1043,12 @@ def phase_flash(rows: list):
     a fully masked row and q_offset, non-causal, Sq around the query tiles,
     g from 1 to 16, qwen2.5-3b's prefill (B 4, Sq 128, Hq 16, Hkv 2),
     train_4k's microbatch and the engine's admissions (B 1 over the prompt
-    bucket, both traffics); then device time in turns
-    with SDPA at the serve prefill, the train microbatch and train_4k."""
+    bucket, both traffics); at head dim 64 (g 1 and 2, a query row over
+    2048 keys, ragged kv_len with a row of no live key, q_offset, causal
+    and not) at the plan's key split and at 1, 2, 4 and 8 forced through
+    the launcher, two launches of each bit-equal; then device time in
+    turns with SDPA at the serve prefill, the train microbatch and
+    train_4k, and the f32 CUDA-core path at the LM sweep's attention."""
     import torch
     from repro_torch.kernels.flash_attn import flash_attn as fa
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1095,6 +1101,47 @@ def phase_flash(rows: list):
         max_err = max(max_err, err)
         del q, k, v, args, got, want
     torch.cuda.empty_cache()
+    d64 = [  # (label, B, Sq, Skv, Hq, Hkv, kv_len, q_offset, causal)
+        ("D 64, g 1, Sq 1 over 2048 keys, a row with no live key", 4, 1,
+         2048, 16, 16, [2048, 0, 1000, 65], 0, False),
+        ("D 64, g 2, Sq 1 over 2048 keys", 4, 1, 2048, 16, 8,
+         [2048, 1999, 0, 64], 0, False),
+        ("D 64, g 2, causal, ragged kv_len, q_offset 5", 4, 128, 144, 16, 8,
+         [128, 0, 77, 144], 5, True),
+        ("D 64, g 1, causal, q_offset 4036", 1, 64, 4100, 32, 32, [4100],
+         4036, True),
+        ("D 64, g 2, Sq 33, non-causal", 2, 33, 300, 16, 8, [300, 31], 7,
+         False),
+        ("D 64, g 1, Sq 31, causal", 2, 31, 97, 16, 16, [97, 0], 3, True)]
+    for label, b, sq, skv, hq, hkv, lens, off, causal in d64:
+        q = _randn(gen, (b, sq, hq, 64))
+        k = _randn(gen, (b, skv, hkv, 64))
+        v = _randn(gen, (b, skv, hkv, 64))
+        args = (q, k, v, _i32(lens), _i32([off]))
+        want = fa.flash_attn_plain(*args, causal=causal)
+        dead = [i for i, n in enumerate(lens) if n == 0]
+        plan = fa.flash_plan(b, sq, hq, hkv, skv)
+        for split in (None, 1, 2, 4, 8):
+            got = fa.flash_attn(*args, causal=causal, kv_split=split)
+            again = fa.flash_attn(*args, causal=causal, kv_split=split)
+            torch.cuda.synchronize()
+            err, frac, ulp = _cmp(got, want)
+            zero = all(not bool(got[i].any()) for i in dead)
+            same = torch.equal(got, again)
+            print(f"[flash_attn] {label}: B={b} Sq={sq} Skv={skv} Hq={hq} "
+                  f"Hkv={hkv} kv_len={lens} q_offset={off} causal={causal}"
+                  f", key split {split or f'{plan} (the plan)'}: max "
+                  f"|kernel - plain| {err:g}, in bf16 ulps {ulp:.3f}, "
+                  f"differing {frac:.4f}, two launches bit-equal {same}"
+                  + (f", rows with no live key exactly 0: {zero}"
+                     if dead else ""))
+            if not _close(err, frac, ulp) or not zero or not same:
+                fail(f"flash_attn disagrees with its plain version or with "
+                     f"itself ({label}, key split {split})")
+            max_err = max(max_err, err)
+            del got, again
+        del q, k, v, args, want
+    torch.cuda.empty_cache()
 
     timed = {}
     print(f"[flash_attn] card before timing: {gpu_state()}")
@@ -1142,6 +1189,45 @@ def phase_flash(rows: list):
                      plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                      bound_by=main["bound_by"], library_ms=main["library_ms"],
                      shape="prefill " + main["shape"], timed=timed))
+
+    # the f32 CUDA-core path at the LM sweep's attention: granite-8b (Hq
+    # 32, Hkv 8, D 128) over a chunk of 13 probes x batch 8, Sq 32, causal
+    b, sq = LM_SWEEP["chunk"] * LM_SWEEP["global_batch"], LM_SWEEP["seq_len"]
+    hq, hkv, d = 32, 8, 128
+    q = torch.randn((b, sq, hq, d), generator=gen, device="cuda")
+    k, v = (torch.randn((b, sq, hkv, d), generator=gen, device="cuda")
+            for _ in range(2))
+    args = (q, k, v, _i32([sq] * b), _i32([0]))
+    err = float((fa.flash_attn(*args) - fa.flash_attn_plain(*args))
+                .abs().max())
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    t = in_turns("flash_attn", "LM sweep f32", {
+        "plain": lambda: fa.flash_attn_plain(*args),
+        "kernel": lambda: fa.flash_attn(*args),
+        "library": lambda: _sdpa(qt, kt, vt, True)},
+        {"plain": 5, "kernel": 20, "library": 20}, alone=True)
+    b_ms, b_by = flash_bound(b, sq, [sq] * b, hq, hkv, d, True, elem=4,
+                             op_type="f32")
+    print(f"[flash_attn] LM sweep f32: B={b} Sq={sq} Hq={hq} Hkv={hkv} "
+          f"D={d} causal (CUDA cores): max |kernel - plain| {err:g} "
+          f"(tolerance {ATOL_F32:g}), kernel {t['kernel_ms']:.5f} ms, plain "
+          f"{t['plain_ms']:.5f} ms, sdpa f32 {t['library_ms']:.5f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}, f32 at 67 TFLOP/s): kernel at "
+          f"{b_ms / t['kernel_ms']:.1%} of its bound, "
+          f"{t['kernel_ms'] / t['library_ms']:.2f}x sdpa")
+    if not err <= ATOL_F32:
+        fail("flash_attn f32 disagrees with its plain version (LM sweep)")
+    rows.append(dict(
+        name="flash_attn", route="cuda",
+        source="src/repro_torch/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash_attn/flash_attn.py:55",
+        max_abs_err=err, ms=t["kernel_ms"], plain_ms=t["plain_ms"],
+        bound_ms=b_ms, bound_by=b_by, library_ms=t["library_ms"],
+        shape=f"LM sweep f32 B={b} Sq={sq} Hq={hq} Hkv={hkv} D={d} causal, "
+              "CUDA cores",
+        timed={k2: t[k2] for k2 in t if k2.endswith("_us")}))
+    del q, k, v, args, qt, kt, vt
+    torch.cuda.empty_cache()
 
 
 def _decode_check(dg, label, q, k, v, lens, chunk) -> float:
@@ -4401,7 +4487,7 @@ def _moe_kernel_checks(rows: list) -> None:
     K 512, N 1024; w a lane, the solved sigma, a seed a lane) bit for bit
     against the plain version and 32 single launches, timed at M 160 and
     M 8 against the single launches; flash_attn at D 64 in bf16 (the
-    CUDA-core path: B 4, Sq 128, Hq 16, Hkv 8, the serve prefill, the
+    tensor cores: B 4, Sq 128, Hq 16, Hkv 8, the serve prefill, the
     train microbatch and the engine's admission) and decode_gqa at D 64, g
     2 (B 4, S 144; the engine's B 8, S 192), within the existing
     tolerances, each timed against SDPA."""
@@ -4481,8 +4567,10 @@ def _moe_kernel_checks(rows: list) -> None:
         want = fa.flash_attn_plain(*args)
         torch.cuda.synchronize()
         ferr, frac, ulp = _cmp(got, want)
+        route = (f"tensor cores, key split {fa.flash_plan(b, sq, hq, hkv, skv)}"
+                 if fa.tensor_core_route(q, k) else "CUDA cores")
         print(f"[moe] flash_attn {label}: B={b} Sq={sq} Skv={skv} Hq={hq} "
-              f"Hkv={hkv} D={hd} bf16 (CUDA-core path): max |kernel - "
+              f"Hkv={hkv} D={hd} bf16 ({route}): max |kernel - "
               f"plain| {ferr:g}, in bf16 ulps {ulp:.3f}, differing "
               f"{frac:.4f}")
         if not _close(ferr, frac, ulp):
@@ -4511,7 +4599,7 @@ def _moe_kernel_checks(rows: list) -> None:
                 max_abs_err=f_err, ms=t["kernel_ms"], plain_ms=t["plain_ms"],
                 bound_ms=b_ms, bound_by=b_by, library_ms=t["library_ms"],
                 shape=f"moe prefill B={b} Sq={sq} S_cache={skv} Hq={hq} "
-                      f"Hkv={hkv} D={hd} causal, CUDA-core path",
+                      f"Hkv={hkv} D={hd} causal, {route}",
                 timed={k2: t[k2] for k2 in t if k2.endswith("_us")}))
             del qt, kt, vt
         del q, k, v, args, got, want
@@ -4942,8 +5030,8 @@ def _flash_rows(tag: str, rows: list, gen, checks: list,
         want = fa.flash_attn_plain(*args, causal=causal)
         torch.cuda.synchronize()
         err, frac, ulp = _cmp(got, want)
-        path = ("tensor cores" if qdt == kdt == torch.bfloat16 and d == 128
-                else "CUDA cores")
+        path = (f"tensor cores, key split {fa.flash_plan(b, sq, hq, hkv, skv)}"
+                if fa.tensor_core_route(q, k) else "CUDA cores")
         print(f"[{tag}] flash_attn {label}: B={b} Sq={sq} Skv={skv} Hq={hq} "
               f"Hkv={hkv} D={d} kv_len={lens} causal={causal} q "
               f"{str(qdt)[6:]} kv {str(kdt)[6:]} ({path}): max |kernel - "
@@ -5050,7 +5138,7 @@ def _encdec_kernel_checks(rows: list) -> None:
     versions on the card: td_vmm at lm_head (K 1024, N 256256: decode M 4
     and a train microbatch M 256), the encoder and the cross-attention's K
     and V over B x frames rows (serve 256, the long memory 8192) and the
-    decoder's denses; flash_attn at D 64, g 1 (the CUDA-core path): the
+    decoder's denses; flash_attn at D 64, g 1 (the tensor cores, bf16): the
     encoder (non-causal, Sq = Skv), the decoder's prefill (causal), the
     cross-attention at Sq 128 and Sq 1 over 64 and 2048 frames, and the
     training's float32 encoder and bf16-against-f32 cross-attention;
@@ -5528,7 +5616,7 @@ def _zamba2_kernel_checks(rows: list) -> None:
     the card: td_vmm at mamba2's in_proj (K 2048, N 8384: not a multiple
     of 128) and out_proj (K 4096), the shared block's wq, the SwiGLU, and
     lm_head (N 32000) at decode and a train microbatch; flash_attn at D
-    64, g 1 (the CUDA-core path; 32 heads of 64): the serve prefill, a
+    64, g 1 (the tensor cores; 32 heads of 64): the serve prefill, a
     train microbatch and the 4096-token prefill, timed against SDPA;
     decode_gqa at D 64, g 1 over the serve's cache and the long one;
     lsq_quant on the new weights and activations."""

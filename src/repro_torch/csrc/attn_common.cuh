@@ -1,6 +1,7 @@
 // Online-softmax attention over KV tiles on CUDA cores, in f32: the path
-// of flash_attn.cu for f32 queries or an f32 cache (its bf16 path runs on
-// the tensor cores, decode_gqa.cu has its own split kernel).  One block
+// of flash_attn.cu for f32 queries, an f32 cache, or a head dim other than
+// 64 and 128 (bf16 q with a bf16 cache at D 64 or 128 runs on the tensor
+// cores; decode_gqa.cu has its own split kernel).  One block
 // of NT threads owns R query rows (R <= MAX_ROWS) that all attend to the
 // same KV head, as the Pallas kernels' (g, bq) row groups do.  Scores and
 // probabilities live only in shared memory; the running (m, l) per row

@@ -19,26 +19,35 @@
 // above the diagonal are never visited; kv_len and q_offset are read from
 // device memory (no host sync).
 //
-// bf16 q with a bf16 cache at D 128 (serve prefill, bf16 training) runs on
-// the tensor cores (`flash_wg`): one warpgroup of 4 warps, each owning 16
-// of the 64 rows.  S = Q K^T is wgmma.m64n64k16 and O += P V is
-// wgmma.m64n128k16, f32 accumulation, A from registers (Q's fragments,
+// Routes.  bf16 q with a bf16 cache at D 64 or 128 runs on the tensor
+// cores (`flash_wg<HD, NSPLIT>`): D 128 serves the dense decoders' prefill
+// and bf16 training; D 64 the MoE (granite-moe), the enc-dec family's
+// encoder, decoder and cross-attention (Sq 1 too) and zamba2's shared
+// block.  f32 q, an f32 cache, or any other D (the f32-compute paths,
+// bf16 q against an f32 cache, the smoke models' D 16) keeps the
+// CUDA-core online softmax of attn_common.cuh (f32 products: TF32 would
+// lose the f32 parity the smoke checks hold), on the same 64-row grid.
+//
+// The tensor-core route: one warpgroup of 4 warps, each owning 16 of the
+// 64 rows.  S = Q K^T is wgmma.m64n64k16 over D / 16 k-steps and O += P V
+// is wgmma.m64n<D>k16, f32 accumulation, A from registers (Q's fragments,
 // loaded once straight from global memory; then P, straight from the S
 // accumulators, which have the A-fragment layout), B from shared memory
-// through matrix descriptors.  wgmma rather than mma.sync: at 16 rows a
-// warp, mma.sync reads each K and V fragment from shared memory for one
-// 16-row product, which kept an mma.sync version of this kernel waiting on
-// shared memory; wgmma reads B once for all 64 rows and issues at twice
-// the rate (the two versions' times: PERF.md, Findings).  K/V tiles stay
-// bf16 in shared memory in the 128-byte swizzled layout the descriptors
-// address, loaded with cp.async into a ring of two stages: tile t + 1 is
-// in flight while tile t is multiplied, and the first tile is requested
-// before kv_len arrives.
-// Scores, running max and sum and the output accumulator live in
-// registers; K and V pass through shared memory, and O on its way out
-// (16-byte stores, staged in the first K stage).  With Q kept out of
-// shared memory a block needs 65 KB and at most 168 registers a thread,
-// so three blocks share an SM where the grid has them (train_4k), not two.
+// through matrix descriptors (K K-major; V MN-major, transposed).  wgmma
+// rather than mma.sync: at 16 rows a warp, mma.sync reads each K and V
+// fragment from shared memory for one 16-row product, which kept an
+// mma.sync version of this kernel waiting on shared memory; wgmma reads B
+// once for all 64 rows and issues at twice the rate (the two versions'
+// times: PERF.md, Findings).  K/V tiles stay bf16 in shared memory in the
+// 128-byte swizzled layout the descriptors address (64 keys of D bf16:
+// one swizzle atom a row at D 64, 8 KB a tile; two at D 128, 16 KB),
+// loaded with cp.async into a ring of two stages: tile t + 1 is in flight
+// while tile t is multiplied, and the first tile is requested before
+// kv_len arrives.  Scores, running max and sum and the output accumulator
+// live in registers; K and V pass through shared memory, and O on its way
+// out (16-byte stores, staged in the first K stage).  With Q kept out of
+// shared memory a block needs 65 KB at D 128 (three blocks share an SM
+// where the grid has them) and 33 KB at D 64 (four).
 // The softmax keeps its running max in log2 units and makes each
 // probability one FFMA and one MUFU exp2, and the row-to-(position, head)
 // map uses a multiply, not a division: at the main path's short shapes a
@@ -54,16 +63,14 @@
 // a causal mask it has the most keys, so the longest blocks start in the
 // first wave and the short ones fill the last.  When the query tiles alone
 // give fewer blocks than SMs (the train microbatch, B 1, Sq 128: 64
-// tiles), the wrapper sets kv_split = 2: the two blocks of a thread block
-// cluster take alternate key tiles of one query tile, and the second
-// writes its (m, l, O) fragments into the first's shared memory, which
-// merges them.  That fills the card (128 blocks), and the longest block
-// multiplies one of its two key tiles.
-//
-// f32 q, an f32 cache or another D (the f32-compute paths, the smoke
-// models) keeps the CUDA-core online softmax of attn_common.cuh (f32
-// products: TF32 would lose the f32 parity the smoke checks hold), on the
-// same 64-row grid.
+// tiles; a cross-attention decode row, B 4 x 16 heads over 2048 frames:
+// 64 tiles of 32 key tiles each), the wrapper's `flash_plan` sets kv_split
+// to 2, 4 or 8: the blocks of a thread block cluster take interleaved key
+// tiles of one query tile (part p: tiles p, p + kv_split, ...) and merge
+// their (m, l, O) fragments through distributed shared memory in a fixed
+// tree (rank r + step into rank r at step 1, 2, 4), so two launches on
+// the same inputs are bit-equal.  The cross decode then runs 512 blocks
+// of 4 key tiles.
 #include "attn_common.cuh"
 
 #include <cooperative_groups.h>
@@ -76,15 +83,23 @@ using bf16 = __nv_bfloat16;
 namespace tc {
 
 constexpr int BK = 64;                    // keys per tile
-constexpr int HD = 128;                   // head dim of the wgmma path
 constexpr int ROWS = 64;                  // query rows per block
 constexpr int NT = 128;                   // one warpgroup
-constexpr uint32_t TILE = BK * HD * 2;    // bytes of a K or V tile
+constexpr int MAX_SPLIT = 8;              // the portable cluster size
+// bytes of a K or V tile at head dim HD (64 keys of HD bf16: one 128-byte
+// swizzle atom a row at HD 64, two at HD 128)
+template <int HD> __host__ __device__ constexpr uint32_t tile_bytes() {
+  return BK * HD * 2;
+}
 // shared memory: two K and two V stages (the first K stage stages O on
-// its way out), and (kv_split 2) the receive area of the merge, [17][NT]
-// float4s; + 1 KB for alignment
-constexpr size_t SMEM = 4 * TILE + 1024;
-constexpr size_t SMEM_RECV = 68 * NT * 4;
+// its way out) + 1 KB for alignment; and (key split) the receive area of
+// the merge, one (m, l, O) payload of [HD / 8 + 1][NT] float4s
+template <int HD> __host__ __device__ constexpr size_t smem_bytes() {
+  return 4 * tile_bytes<HD>() + 1024;
+}
+template <int HD> __host__ __device__ constexpr size_t recv_bytes() {
+  return (size_t)(HD / 8 + 1) * NT * 16;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -124,12 +139,13 @@ __device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi,
 
 // byte offset of 16-byte chunk c of row r of the O staging tile (rows of
 // HD bf16, chunks XOR-swizzled by row against bank conflicts)
+template <int HD>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (uint32_t)(r * HD * 2 + ((c ^ (r & 7)) << 4));
 }
 
 // K and V tiles in the 128-byte swizzled layout the wgmma descriptors read:
-// two 64-column blocks of BK rows of 128 B, 16-byte chunk c of row r at
+// HD / 64 column blocks of BK rows of 128 B, 16-byte chunk c of row r at
 // chunk (c & 7) ^ (r & 7) of its row (tiles 1024-byte aligned)
 __device__ __forceinline__ uint32_t swz128(int r, int c) {
   return (uint32_t)((c >> 3) * (BK * 128) + r * 128 +
@@ -159,14 +175,16 @@ __device__ __forceinline__ void fence_async_smem() {
 }
 
 // d (64 x 64 f32 over the warpgroup) (+)= a (this warp's 16 x 16 bf16 A
-// fragment, as for mma.sync) x B (descriptor, K-major)
+// fragment, as for mma.sync) x B (descriptor; K-major, or with TRANS
+// MN-major: transposed)
+template <int TRANS>
 __device__ __forceinline__ void wgmma_n64(float (&d)[8][4], const uint32_t* a,
                                           uint64_t desc, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %36, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %37, p, 1, 1, 0;\n}\n"
+      "{%32, %33, %34, %35}, %37, p, 1, 1, %38;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -175,7 +193,8 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[8][4], const uint32_t* a,
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(acc), "l"(desc));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(acc), "l"(desc),
+        "n"(TRANS));
 }
 // d (64 x 128 f32) += a x B (descriptor, MN-major: transposed)
 __device__ __forceinline__ void wgmma_n128t(float (&d)[16][4],
@@ -204,25 +223,39 @@ __device__ __forceinline__ void wgmma_n128t(float (&d)[16][4],
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(acc), "l"(desc));
 }
+// O += P V for one 16-key k-step: n64 at HD 64, n128 at HD 128
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 8][4],
+                                         const uint32_t* a, uint64_t desc) {
+  if constexpr (HD == 64)
+    wgmma_n64<1>(d, a, desc, 1);
+  else
+    wgmma_n128t(d, a, desc, 1);
+}
 
+// blocks resident on an SM at each head dim (registers and shared memory
+// as ptxas reports them: PERF.md, Findings)
+template <int HD> __host__ __device__ constexpr int min_blocks() {
+  return HD == 128 ? 3 : 4;
+}
 
-template <bool KV2>
-__global__ void __launch_bounds__(NT, 3)
+template <int HD, int NSPLIT>
+__global__ void __launch_bounds__(NT, min_blocks<HD>())
 flash_wg(const bf16* __restrict__ q, const bf16* __restrict__ k,
          const bf16* __restrict__ v, const int* __restrict__ kv_len,
          const int* __restrict__ q_offset, bf16* __restrict__ o, int Sq,
          int Skv, int Hq, int Hkv, int bq, int causal, float scale) {
   constexpr int CH = HD / 8, KSTEPS = HD / 16, NB = BK / 8, ND = HD / 8;
-  constexpr int NSPLIT = KV2 ? 2 : 1;
+  constexpr uint32_t TILE = tile_bytes<HD>();
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const uint32_t base = smem_u32(tc_smem);
   const uint32_t sK = (base + 1023) & ~1023u;   // descriptors: 1 KB atoms
   unsigned char* gK = tc_smem + (sK - base);    // K stages 0, 1, V 0, 1
   float* recv = reinterpret_cast<float*>(gK + 4 * TILE);
-  if constexpr (KV2)           // "started" phase: waited on before writing
+  if constexpr (NSPLIT > 1)    // "started" phase: waited on before writing
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const int qt = gridDim.x / NSPLIT - 1 - blockIdx.x / NSPLIT;
-  const int part = blockIdx.x % NSPLIT;
+  const int part = blockIdx.x % NSPLIT;         // rank in the cluster
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int g = Hq / Hkv, R = bq * g, q0 = qt * bq;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -318,10 +351,10 @@ flash_wg(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks)
-      wgmma_n64(s, qf[ks],
-                gmma_desc(sk + (ks >> 2) * (BK * 128) + (ks & 3) * 32, 16,
-                          1024),
-                ks > 0);
+      wgmma_n64<0>(s, qf[ks],
+                   gmma_desc(sk + (ks >> 2) * (BK * 128) + (ks & 3) * 32, 16,
+                             1024),
+                   ks > 0);
     wg_commit();
     wg_wait0();
 
@@ -403,8 +436,8 @@ flash_wg(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t dv = gmma_desc(sv + kk * 16 * 128, BK * 128, 1024);
-      wgmma_n128t(oacc, a[kk], dv, 1);
-      wgmma_n128t(oacc, a_lo[kk], dv, 1);
+      wgmma_pv<HD>(oacc, a[kk], dv);
+      wgmma_pv<HD>(oacc, a_lo[kk], dv);
     }
     wg_commit();
     wg_wait0();
@@ -413,43 +446,57 @@ flash_wg(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   cp_async_wait<0>();
 
-  if constexpr (KV2) {
-    // the cluster's second block hands its (m, l, O) fragments to the
-    // first, thread for thread; the first merges them
+  if constexpr (NSPLIT > 1) {
+    // the cluster's blocks merge their (m, l, O) fragments, thread for
+    // thread, in a fixed tree: at step 1, 2, 4, the block of rank
+    // part = r + step (r a multiple of 2 step) hands its fragments to
+    // rank r, which merges them into its own.  Every block takes part in
+    // every barrier; rank 0 writes the output.
+    namespace cg = cooperative_groups;
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-    if (part == 1) {
-      namespace cg = cooperative_groups;
-      float* rc = cg::this_cluster().map_shared_rank(recv, 0);
-      float4* rc4 = reinterpret_cast<float4*>(rc);
 #pragma unroll
-      for (int nd = 0; nd < ND; ++nd)
-        rc4[nd * NT + tid] =
-            make_float4(oacc[nd][0], oacc[nd][1], oacc[nd][2], oacc[nd][3]);
-      rc4[ND * NT + tid] = make_float4(m_r[0], m_r[1], l_r[0], l_r[1]);
-    }
-    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-    if (part == 1) return;
-    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-    const float4* rv4 = reinterpret_cast<const float4*>(recv);
-    const float4 ml = rv4[ND * NT + tid];
-    const float m1[2] = {ml.x, ml.y}, l1[2] = {ml.z, ml.w};
-    float w0[2], w1[2];
+    for (int step = 1; step < NSPLIT; step <<= 1) {
+      const int low = part & (2 * step - 1);
+      if (low == step) {
+        float4* rc4 = reinterpret_cast<float4*>(
+            cg::this_cluster().map_shared_rank(recv, part - step));
 #pragma unroll
-    for (int i2 = 0; i2 < 2; ++i2) {
-      const float mm = fmaxf(m_r[i2], m1[i2]);
-      w0[i2] = ex2(m_r[i2] - mm);
-      w1[i2] = ex2(m1[i2] - mm);
-      m_r[i2] = mm;
-      l_r[i2] = w0[i2] * l_r[i2] + w1[i2] * l1[i2];
-    }
+        for (int nd = 0; nd < ND; ++nd)
+          rc4[nd * NT + tid] =
+              make_float4(oacc[nd][0], oacc[nd][1], oacc[nd][2], oacc[nd][3]);
+        rc4[ND * NT + tid] = make_float4(m_r[0], m_r[1], l_r[0], l_r[1]);
+      }
+      asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+      asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+      if (low == 0) {
+        const float4* rv4 = reinterpret_cast<const float4*>(recv);
+        const float4 ml = rv4[ND * NT + tid];
+        const float m1[2] = {ml.x, ml.y}, l1[2] = {ml.z, ml.w};
+        float w0[2], w1[2];
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const float4 x = rv4[nd * NT + tid];
-      oacc[nd][0] = w0[0] * oacc[nd][0] + w1[0] * x.x;
-      oacc[nd][1] = w0[0] * oacc[nd][1] + w1[0] * x.y;
-      oacc[nd][2] = w0[1] * oacc[nd][2] + w1[1] * x.z;
-      oacc[nd][3] = w0[1] * oacc[nd][3] + w1[1] * x.w;
+        for (int i2 = 0; i2 < 2; ++i2) {
+          const float mm = fmaxf(m_r[i2], m1[i2]);
+          w0[i2] = ex2(m_r[i2] - mm);
+          w1[i2] = ex2(m1[i2] - mm);
+          m_r[i2] = mm;
+          l_r[i2] = w0[i2] * l_r[i2] + w1[i2] * l1[i2];
+        }
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd) {
+          const float4 x = rv4[nd * NT + tid];
+          oacc[nd][0] = w0[0] * oacc[nd][0] + w1[0] * x.x;
+          oacc[nd][1] = w0[0] * oacc[nd][1] + w1[0] * x.y;
+          oacc[nd][2] = w0[1] * oacc[nd][2] + w1[1] * x.z;
+          oacc[nd][3] = w0[1] * oacc[nd][3] + w1[1] * x.w;
+        }
+      }
+      if (2 * step < NSPLIT) {
+        // the receivers have read their area before the next step writes
+        asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+        asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+      }
     }
+    if (part != 0) return;
   }
 
   // O / max(l, 1e-30) in bf16, staged through the first K stage's shared
@@ -464,7 +511,7 @@ flash_wg(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = row0 + gid + 8 * i2;
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<uint32_t*>(gK + swz(r, nd) + 4 * t4) =
+      *reinterpret_cast<uint32_t*>(gK + swz<HD>(r, nd) + 4 * t4) =
           pack_bf16(oacc[nd][2 * i2] * inv, oacc[nd][2 * i2 + 1] * inv);
   }
   __syncthreads();
@@ -474,16 +521,17 @@ flash_wg(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (r < R && qpos < Sq)
       *reinterpret_cast<uint4*>(o + (((size_t)b * Sq + qpos) * Hq + h) * HD +
                                 (tid % CH) * 8) =
-          *reinterpret_cast<const uint4*>(gK + swz(r, tid % CH));
+          *reinterpret_cast<const uint4*>(gK + swz<HD>(r, tid % CH));
   }
 }
 
-template <bool KV2>
+template <int HD, int NSPLIT>
 int launch(const void* q, const void* k, const void* v, const int* kv_len,
            const int* q_offset, void* o, int B, int Sq, int Skv, int Hq,
            int Hkv, int bq, int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = SMEM + (KV2 ? SMEM_RECV : 0);
-  auto kern = flash_wg<KV2>;
+  constexpr size_t smem =
+      smem_bytes<HD>() + (NSPLIT > 1 ? recv_bytes<HD>() : 0);
+  auto kern = flash_wg<HD, NSPLIT>;
   static uint64_t attr_set = 0;           // devices whose limit is raised
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -495,20 +543,34 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len,
     attr_set |= uint64_t{1} << dev;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((Sq + bq - 1) / bq * (KV2 ? 2 : 1), Hkv, B);
+  cfg.gridDim = dim3((Sq + bq - 1) / bq * NSPLIT, Hkv, B);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 2;
+  attr.val.clusterDim.x = NSPLIT;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
-  cfg.numAttrs = KV2 ? 1 : 0;
+  cfg.numAttrs = NSPLIT > 1 ? 1 : 0;
   return (int)cudaLaunchKernelEx(&cfg, kern, (const bf16*)q, (const bf16*)k,
                                  (const bf16*)v, kv_len, q_offset, (bf16*)o,
                                  Sq, Skv, Hq, Hkv, bq, causal, scale);
+}
+
+template <int HD>
+int launch_split(int kv_split, const void* q, const void* k, const void* v,
+                 const int* kv_len, const int* q_offset, void* o, int B,
+                 int Sq, int Skv, int Hq, int Hkv, int bq, int causal,
+                 float scale, cudaStream_t s) {
+  switch (kv_split) {
+    case 1: return launch<HD, 1>(q, k, v, kv_len, q_offset, o, B, Sq, Skv, Hq, Hkv, bq, causal, scale, s);
+    case 2: return launch<HD, 2>(q, k, v, kv_len, q_offset, o, B, Sq, Skv, Hq, Hkv, bq, causal, scale, s);
+    case 4: return launch<HD, 4>(q, k, v, kv_len, q_offset, o, B, Sq, Skv, Hq, Hkv, bq, causal, scale, s);
+    case 8: return launch<HD, 8>(q, k, v, kv_len, q_offset, o, B, Sq, Skv, Hq, Hkv, bq, causal, scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace tc
@@ -579,28 +641,30 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len,
 // q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), o like q, all contiguous and
 // 16-byte aligned; q_bf16 / kv_bf16 select bf16 (1) or f32 (0) for q/o and
 // for k/v.  kv_len (B,) and q_offset (1,) are int32 in device memory.
-// Needs D <= 128 and g = Hq / Hkv <= 64.  kv_split (1 or 2, tensor-core
-// path only: bf16 q and k/v at D 128; other cases take the CUDA-core path)
-// is the number of blocks sharing a query tile's key tiles.  Returns the
-// launch's cudaError_t.
+// Needs D <= 128 and g = Hq / Hkv <= 64.  kv_split (1, 2, 4 or 8; more
+// than 1 on the tensor-core path only: bf16 q and k/v at D 64 or 128;
+// other cases take the CUDA-core path) is the number of blocks sharing a
+// query tile's key tiles.  Returns the launch's cudaError_t.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  const void* kv_len, const void* q_offset,
                                  void* o, int B, int Sq, int Skv, int Hq,
                                  int Hkv, int D, int causal, float scale,
                                  int q_bf16, int kv_bf16, int kv_split,
                                  void* stream) {
-  const bool tc_path = q_bf16 && kv_bf16 && D == tc::HD;
+  const bool tc_path = q_bf16 && kv_bf16 && (D == 64 || D == 128);
+  const bool split_ok = kv_split == 1 || kv_split == 2 || kv_split == 4 ||
+                        kv_split == tc::MAX_SPLIT;
   if (D > attn::MAX_D || Hq % Hkv != 0 || Hq / Hkv > attn::MAX_ROWS ||
-      (kv_split != 1 && kv_split != 2) || (kv_split == 2 && !tc_path))
+      !split_ok || (kv_split > 1 && !tc_path))
     return (int)cudaErrorInvalidValue;
   const int bq = tc::ROWS / (Hq / Hkv);
   auto lens = (const int*)kv_len;
   auto off = (const int*)q_offset;
   auto s = (cudaStream_t)stream;
   if (tc_path)
-    return kv_split == 2
-        ? tc::launch<true>(q, k, v, lens, off, o, B, Sq, Skv, Hq, Hkv, bq, causal, scale, s)
-        : tc::launch<false>(q, k, v, lens, off, o, B, Sq, Skv, Hq, Hkv, bq, causal, scale, s);
+    return D == 64
+        ? tc::launch_split<64>(kv_split, q, k, v, lens, off, o, B, Sq, Skv, Hq, Hkv, bq, causal, scale, s)
+        : tc::launch_split<128>(kv_split, q, k, v, lens, off, o, B, Sq, Skv, Hq, Hkv, bq, causal, scale, s);
   if (q_bf16 && kv_bf16)
     return launch<bf16, bf16>(q, k, v, lens, off, o, B, Sq, Skv, Hq, Hkv, D, bq, causal, scale, s);
   if (q_bf16)

@@ -371,9 +371,26 @@ def embed(params: dict, ids: torch.Tensor) -> torch.Tensor:
         table = table.redistribute(table.device_mesh, [
             Replicate() if p.is_shard(0) else p for p in table.placements])
         out = torch.nn.functional.embedding(ids, table)
+        if any(p.is_partial() for p in out.placements):
+            # DTensor may still split a replicated table over its
+            # vocabulary when that moves the fewest bytes (a small table
+            # against a long batch of ids): the lookup is then a masked
+            # partial sum, which is reduced here.  Its gradient comes back
+            # as a plain partial sum, which DTensor cannot turn into the
+            # masked one that the lookup's backward reads: it is reduced
+            # too, and the lookup's backward takes it replicated.
+            out = out.redistribute(out.device_mesh, _unpartial(out))
+            if out.requires_grad:
+                out.register_hook(
+                    lambda g: g.redistribute(g.device_mesh, _unpartial(g)))
         return maybe_constrain(out, batch_sharding_axes(),
                                *([None] * (out.dim() - 1)))
     return table[ids]
+
+
+def _unpartial(x: DTensor) -> list:
+    """``x``'s placements with every partial sum replaced by Replicate."""
+    return [Replicate() if p.is_partial() else p for p in x.placements]
 
 
 def _pick(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

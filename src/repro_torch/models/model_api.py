@@ -199,6 +199,6 @@ _API = {
 
 def get_api(cfg: ModelCfg) -> dict:
     if cfg.family not in _API:
-        raise NotImplementedError(f"model family {cfg.family!r} is not yet "
-                                  "ported (ROADMAP.md §1, step 13)")
+        raise NotImplementedError(f"model family {cfg.family!r} is not in "
+                                  f"the registry ({', '.join(_API)})")
     return _API[cfg.family]

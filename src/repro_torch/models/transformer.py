@@ -79,8 +79,9 @@ def _check_supported(cfg: ModelCfg) -> None:
                          "models.encdec (model_api's 'encdec' entry), not "
                          "the decoder stack")
     if cfg.family != "decoder":
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} not "
-                                  "yet ported (ROADMAP.md §1, step 13)")
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is "
+                                  "not in the model registry "
+                                  "(models.model_api)")
     for i in range(cfg.n_layers):
         if cfg.mixer_at(i) not in MIXERS:
             raise ValueError(f"{cfg.name}: mixer {cfg.mixer_at(i)!r}")

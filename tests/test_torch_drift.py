@@ -13,14 +13,15 @@ and `ContinuousBatchingEngine(adapt=True)`) against the reference
   policy's row of the operand tensor itself (bit-exact against the
   memoized operand, moved by an in-place write, no memo entry).
 * The adaptive engine: the port's and the reference's engines serve the
-  smoke qwen3-8b (float32 compute, the reference's parameters) under one
-  trace, each with a resolver and a supply resolver that wrap the real
-  solves and set sigma_chain to 0, and an initial policy at sigma 0, so
-  the tokens carry no Box-Muller noise (not bit-reproducible across
-  backends).  Equal tokens and swap_log steps, kinds and Vdds; ops within
-  1e-6 relative, meter energies within 1e-4.  Staged rebuilds are waited
-  out before each step in both, so their installs land at the same step.
-  The port's scripted replay of its swap_log gives the same tokens, with
+  smoke qwen3-8b and the smoke granite-moe-1b-a400m (float32 compute,
+  the reference's parameters) under one trace, each with a resolver and
+  a supply resolver that wrap the real solves and set sigma_chain to 0,
+  and an initial policy at sigma 0, so the tokens carry no Box-Muller
+  noise (not bit-reproducible across backends).  Equal tokens and
+  swap_log steps, kinds and Vdds; ops within 1e-6 relative, meter
+  energies within 1e-4.  Staged rebuilds are waited out before each step
+  in both, so their installs land at the same step.  The port's scripted
+  replay of its swap_log (qwen3-8b) gives the same tokens, with
   the decode step built once and no new td_vmm operand.
 """
 import torch_threads  # noqa: F401  (first: torch's threads under xdist)
@@ -297,16 +298,17 @@ def _run(eng, mod, fmod):
     return out, {rid: list(r.generated) for rid, r in eng.done.items()}
 
 
-@pytest.fixture(scope="module")
-def engines():
-    cfg = jcfgs.get_smoke("qwen3-8b").model
+def _engines(name: str, replay: bool = True) -> dict:
+    """Both packages' adaptive engines on the smoke ``name`` (see the
+    module docstring); with ``replay`` also the port's scripted replay."""
+    cfg = jcfgs.get_smoke(name).model
     jp = jget_api(cfg)["init"](jax.random.key(0), cfg,
                                jpolicy.quant_policy())
     tp = params_from_jax(jax.device_get(jp), cfg, device="cpu")
-    ja = jcfgs.get_smoke("qwen3-8b").replace(
+    ja = jcfgs.get_smoke(name).replace(
         td=JTD(mode="td", sigma_max=2.0),
         train=JTrain(compute_dtype="float32"))
-    ta = tcfgs.get_smoke("qwen3-8b").replace(
+    ta = tcfgs.get_smoke(name).replace(
         td=TTD(mode="td", sigma_max=2.0),
         train=TTrain(compute_dtype="float32"))
     kw = dict(capacity=2, s_cache=30, kv_block=8, adapt=True,
@@ -349,8 +351,10 @@ def engines():
         n0 = len(tops._params)
         tout, ttok = _run(teng, tsched, ft)
         memo_growth = len(tops._params) - n0
-        reng = teng_of(scripted_swaps=teng.swap_log)
-        rout, rtok = _run(reng, tsched, ft)
+        rout = rtok = None
+        if replay:
+            reng = teng_of(scripted_swaps=teng.swap_log)
+            rout, rtok = _run(reng, tsched, ft)
         n_builds = len(builds)
     finally:
         mp.undo()
@@ -359,8 +363,27 @@ def engines():
                 n_builds=n_builds)
 
 
+@pytest.fixture(scope="module")
+def engines():
+    return _engines("qwen3-8b")
+
+
+@pytest.fixture(scope="module")
+def moe_engines():
+    return _engines("granite-moe-1b-a400m", replay=False)
+
+
 def test_adaptive_engine_matches_reference(engines):
-    e = engines
+    _assert_engines_match(engines)
+
+
+def test_moe_adaptive_engine_matches_reference(moe_engines):
+    """The MoE decoder (its experts' td_vmm lanes read the same runtime
+    operand rows) under the same trace: as the dense model."""
+    _assert_engines_match(moe_engines)
+
+
+def _assert_engines_match(e: dict) -> None:
     jout, tout = e["jout"], e["tout"]
     assert tout["requests"] == jout["requests"] == 3          # zero lost
     assert e["ttok"] == e["jtok"]

@@ -10,6 +10,10 @@ at the mesh's size as the process starts) with its own timeout.
 * The smoke granite-8b prefill_32k, where every dimension divides the
   mesh: its matmul FLOPs per chip times the chips on (2, 2) equal the
   (1, 1) count within 1%.
+* The smoke `train_4k` cells of qwen3-8b, granite-8b and
+  granite-moe-1b-a400m on a (2, 2) fake mesh, where DTensor splits the
+  small embedding table over its vocabulary and the lookup's gradient
+  must come back through that split: rc 0 and a complete artifact.
 """
 import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import json
@@ -84,3 +88,15 @@ def test_flops_per_chip_times_chips_equal_one_device(tmp_path):
     assert mm4 == pytest.approx(mm1, rel=0.01)
     assert one["collectives"]["counts"] == {
         k: 0 for k in one["collectives"]["counts"]}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-8b",
+                                  "granite-moe-1b-a400m"])
+def test_smoke_train_4k_small_mesh(arch, tmp_path):
+    res = _dryrun(tmp_path, 4, "--arch", arch, "--shape", "train_4k",
+                  "--smoke", timeout=120)
+    assert res["ok"] and res["chips"] == 4 and res["mesh"] == "small_2x2"
+    for k in KEYS:
+        assert k in res, k
+    assert res["flops_per_chip"] > 0 and res["roofline"]["step_s"] > 0
+    assert res["collectives"]["counts"]["all-reduce"] > 0

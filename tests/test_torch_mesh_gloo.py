@@ -17,6 +17,10 @@ xdist workers), in a subprocess with its own timeout
   bit, and the reference's to its noise's last ulps; the smoke qwen3-8b
   served there in td mode (`serve.run(mesh=)`) gives the plain serve's
   tokens and logits bit for bit.
+* The gradients of a loss over the smoke-sized embedding table and an
+  lm_head on a (2, 2) mesh, at enough ids that DTensor splits the table
+  over its vocabulary (a masked partial lookup), equal the unsharded
+  ones to 1e-5 of their scale.
 """
 import torch_threads  # noqa: F401  (first: torch's threads under xdist)
 import json
@@ -32,10 +36,10 @@ ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "torch_mesh_worker.py"
 
 
-def _run(tmp_path, world: int, timeout: float) -> list:
+def _run(tmp_path, world: int, timeout: float, *mode: str) -> list:
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, str(WORKER), str(tmp_path),
-                          str(world)], env=env, capture_output=True,
+                          str(world), *mode], env=env, capture_output=True,
                          text=True, timeout=timeout, cwd=ROOT)
     assert out.returncode == 0, out.stdout + out.stderr
     return [json.loads((tmp_path / f"rank{r}.json").read_text())
@@ -76,3 +80,11 @@ def test_one_device_mesh_matches_reference(tmp_path):
     np.testing.assert_allclose(doc["plain"]["rel_drop"],
                                np.asarray(want.rel_drop), rtol=1e-5,
                                atol=1e-7)
+
+
+def test_four_ranks_vocab_split_lookup_gradient(tmp_path):
+    docs = _run(tmp_path, 4, 120, "embed")
+    for r, doc in enumerate(docs):
+        for err, scale in doc["embed_grad"]:
+            # f32; the sharded sums add in another order
+            assert err <= 1e-5 * scale, (r, doc["embed_grad"])

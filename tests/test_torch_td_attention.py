@@ -11,7 +11,8 @@ numpy with a seed.  What is held exactly and what to a tolerance:
   of a whole call; the port's lane calls against one `td_vmm_seeded` a
   lane at the lane seeds (noise included); clean heads beside a noisy
   one; the STE gradient against the clean-attention gradient; the smoke
-  serve's tokens with ``--td-attn quant``;
+  serve's tokens with ``--td-attn quant``, and the smoke MoE's with
+  ``--td-attn td`` at sigma 0;
 * the output at sigma 0 within 2e-5 absolute: the softmax's ``exp`` and
   sums differ by an ulp between XLA and torch, so a probability code can
   flip at a rounding tie (one code moves the output by s_p * s_v);
@@ -32,6 +33,8 @@ moves codes at near ties (1.71 in the smoke prefill's logits; ROADMAP
 its op-by-op run.
 """
 import torch_threads  # noqa: F401  (first: torch's threads under xdist)
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -58,7 +61,8 @@ from repro_torch.models import common as tcommon
 from repro_torch.tdsim import td_attention as tta
 from repro_torch.tdsim.policy import TDPolicy
 
-from torch_train_parity import archs, assert_params_close, run_both
+from torch_train_parity import (_oracle_td_vmm, archs, assert_params_close,
+                                 run_both)
 
 B, HQ, HKV, D = 2, 4, 2, 16
 
@@ -347,6 +351,83 @@ def test_smoke_serve_td_attn_quant_gives_reference_tokens(capsys):
                        "--prompt-len", "4", "--gen", "2"])
     assert ids.shape == (1, 2)
     assert "[serve] prefill" in capsys.readouterr().out
+
+
+def _sigma0(pol):
+    """``pol`` (a TDPolicy or a NetworkPolicy of either package) with
+    every sigma_chain set to 0."""
+    if hasattr(pol, "layers"):
+        return dataclasses.replace(
+            pol, layers=tuple(map(_sigma0, pol.layers)), top=_sigma0(pol.top),
+            attn=None if pol.attn is None else tuple(map(_sigma0, pol.attn)))
+    return dataclasses.replace(pol, sigma_chain=0.0)
+
+
+def test_moe_smoke_serve_td_attn_td_gives_reference_tokens(monkeypatch):
+    """granite-moe-1b-a400m's smoke model served with ``--td quant
+    --td-attn td`` (the experts and denses quantized, attention through
+    the td_vmm lanes): the head policies solved by each package, then set
+    to sigma 0 (the noise's Box-Muller is not bit-reproducible across
+    backends), the reference's converted weights through both packages'
+    prefill and serve steps (a 4-token prefill and 2 decode steps), the
+    reference op by op (see the module docstring; its td_vmm through the
+    plain oracle, which that needs): equal tokens, and the prefill's
+    logits within 1e-4 of their scale."""
+    from repro.configs.base import ShapeCfg as JShape
+    from repro.configs.base import TrainCfg as JTrain
+    from repro.launch import steps as jsteps
+    from repro.models import get_api as jget_api
+    from repro.tdsim.policy import quant_policy as jquant
+    from repro_torch.configs.base import ShapeCfg as TShape
+    from repro_torch.configs.base import TrainCfg as TTrain
+    from repro_torch.launch import steps as tsteps
+
+    from repro.tdsim import td_linear as jlin
+    name = "granite-moe-1b-a400m"
+    monkeypatch.setattr(jlin.td_ops, "td_vmm_seeded", _oracle_td_vmm)
+    ja = jcfgs.get_smoke(name)
+    ja = ja.replace(td=JTD(mode="quant"), td_attn=JTD(mode="td",
+                                                   n_chain=ja.model.hd),
+                    train=JTrain(compute_dtype="float32"))
+    ta = tcfgs.get_smoke(name)
+    ta = ta.replace(td=TTD(mode="quant"), td_attn=TTD(mode="td",
+                                                   n_chain=ta.model.hd),
+                    train=TTrain(compute_dtype="float32"))
+    # solved once here (the reference's solve is compiled, not op by op)
+    jpol = _sigma0(jcommon.resolve_arch_policy(ja))
+    tpol = _sigma0(tcommon.resolve_arch_policy(ta, device="cpu"))
+    assert tpol.attn is not None and len(tpol.attn) == ta.model.n_heads
+    monkeypatch.setattr(jcommon, "resolve_arch_policy", lambda a: jpol)
+    monkeypatch.setattr(tcommon, "resolve_arch_policy",
+                        lambda a, device=None: tpol)
+    cfg = ja.model
+    jp = jget_api(cfg)["init"](jax.random.key(0), cfg, jquant())
+    tp = convert.params_from_jax(jax.device_get(jp), cfg, device="cpu")
+    toks = tserve.prompts(1, 2, 4, cfg.vocab)
+    shape_j, shape_t = JShape("s", 7, 2, "decode"), TShape("s", 7, 2,
+                                                        "decode")
+    with jax.disable_jit():
+        jpre = jsteps.build_prefill_step(ja, shape_j)
+        jsrv = jsteps.build_serve_step(ja, shape_j)
+        jl, js = jpre(jp, {"tokens": jnp.asarray(toks)})
+        jt = jnp.argmax(jl[:, -1], -1).astype(jnp.int32)[:, None]
+        jo = [np.asarray(jt)]
+        for _ in range(2):
+            jt, js = jsrv(jp, jt, js)
+            jo.append(np.asarray(jt))
+    tpre = tsteps.build_prefill_step(ta, shape_t, device="cpu")
+    tsrv = tsteps.build_serve_step(ta, shape_t, device="cpu")
+    tl, ts = tpre(tp, {"tokens": torch.from_numpy(toks)})
+    tt = torch.argmax(tl[:, -1], -1).to(torch.int32)[:, None]
+    to = [tt.numpy()]
+    for _ in range(2):
+        tt, ts = tsrv(tp, tt, ts)
+        to.append(tt.numpy())
+    np.testing.assert_array_equal(np.concatenate(to, 1),
+                                  np.concatenate(jo, 1))
+    jl = np.asarray(jl)
+    np.testing.assert_allclose(tl.float().numpy(), jl, rtol=0,
+                               atol=1e-4 * float(np.abs(jl).max()))
 
 
 def test_smoke_train_step_td_attn_matches_reference(monkeypatch):

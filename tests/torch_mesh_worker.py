@@ -4,6 +4,7 @@ sharding on real CPU processes, the gloo backend over a `FileStore`.
     python tests/torch_mesh_worker.py DIR 4    # 4 ranks: (2, 2) and (4, 1)
     python tests/torch_mesh_worker.py DIR 1    # 1 rank: the (1, 1) search
     python tests/torch_mesh_worker.py DIR 4 scan   # the stacked layout
+    python tests/torch_mesh_worker.py DIR 4 embed  # the sharded lookup's gradient
 
 Each rank writes ``DIR/rank<r>.json``.  Four ranks check: the smoke
 decoder's forward with parameters placed by `param_specs` on a (2, 2)
@@ -15,7 +16,11 @@ hold against the reference's `TestMeshShardedProbes`, and serves the
 smoke qwen3-8b on it against the plain serve.  With ``scan``, four ranks
 serve the stacked (``scan_layers``) smoke qwen3-8b on a (2, 2) mesh
 against the unsharded stacked serve and the unrolled serve on the mesh,
-and restore a stacked checkpoint onto placements.
+and restore a stacked checkpoint onto placements.  With ``embed``, four
+ranks take the gradients of a loss over the smoke-sized embedding table
+(vocab 128, d_model 64, placed by `param_specs`) and an lm_head on a (2,
+2) mesh, at 4 x 4096 ids: DTensor then splits the table over its
+vocabulary, and the gradients must equal the unsharded ones.
 """
 import json
 import os
@@ -80,6 +85,8 @@ def run(rank: int, world: int, out: str, mode: str = "") -> None:
     if mode == "scan":
         doc.update(_scan_serve(mesh_lib))
         doc.update(_restore(mesh_lib, out, rank, scan=True))
+    elif mode == "embed":
+        doc.update(_embed_grad(mesh_lib))
     elif world == 1:
         mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), device="cpu")
         kw = dict(SEARCH, key=key, device="cpu")
@@ -194,6 +201,43 @@ def _forward(mesh_lib) -> dict:
             "forward_scale": float(want.abs().max()),
             "forward_placements": [str(p) for p in got.placements],
             "sharded_leaves": int(sharded)}
+
+
+def _embed_grad(mesh_lib) -> dict:
+    """Gradients of a loss over `common.embed` and an lm_head, sharded on
+    a (2, 2) mesh against unsharded (f32): the largest difference of each
+    and its scale."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch import sharding
+    from repro_torch.models import common
+    rng = np.random.default_rng(5)
+    params = {"embed": {"table": rng.standard_normal((128, 64))},
+              "lm_head": {"w": rng.standard_normal((64, 128))}}
+    params = {k: {n: torch.from_numpy(t.astype(np.float32))
+                  for n, t in v.items()} for k, v in params.items()}
+    toks = torch.from_numpy(rng.integers(0, 128, (4, 4096)).astype(np.int32))
+
+    def grads(tree, ids):
+        leaves = [tree["embed"]["table"], tree["lm_head"]["w"]]
+        for t in leaves:
+            t.requires_grad_(True)
+        h = common.embed(tree["embed"], ids)
+        ((h * h).sum(-1, keepdim=True) * (h @ tree["lm_head"]["w"])).mean(
+        ).backward()
+        return [t.grad for t in leaves]
+
+    want = grads(params, toks)
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device="cpu")
+    placed = sharding.distribute(
+        {k: {n: t.detach() for n, t in v.items()} for k, v in params.items()},
+        sharding.param_specs(params, mesh), mesh)
+    ids = distribute_tensor(toks, mesh, sharding.placements(
+        sharding.batch_spec(mesh, 4, 2), mesh), src_data_rank=None)
+    with sharding.sharded_region(mesh):
+        got = grads(placed, ids)
+    return {"embed_grad": [[float((g.full_tensor() - w).abs().max()),
+                            float(w.abs().max())]
+                           for g, w in zip(got, want)]}
 
 
 def _leaves(tree):
