@@ -13,20 +13,55 @@
 //
 // Design.  The TPU grid carried (m, l, acc) across sequential KV grid steps
 // in VMEM; here one block owns one (batch, kv head, query tile) and loops
-// over 64-key tiles itself.  A query tile is 64 rows, the g heads of the
-// group times 64 / g positions (row r: position r / g, head r % g), so each
-// K/V tile is read once for the whole group.  Dead tiles past kv_len or
-// above the diagonal are never visited; kv_len and q_offset are read from
-// device memory (no host sync).
+// over key tiles itself (64 keys on the tensor cores, 32 on the CUDA
+// cores).  A query tile is 64 rows, the g heads of the group times 64 / g
+// positions (row r: position r / g, head r % g), so each K/V tile is read
+// once for the whole group.  Dead tiles past kv_len or above the diagonal
+// are never visited; kv_len and q_offset are read from device memory (no
+// host sync).
 //
 // Routes.  bf16 q with a bf16 cache at D 64 or 128 runs on the tensor
 // cores (`flash_wg<HD, NSPLIT>`): D 128 serves the dense decoders' prefill
 // and bf16 training; D 64 the MoE (granite-moe), the enc-dec family's
 // encoder, decoder and cross-attention (Sq 1 too) and zamba2's shared
-// block.  f32 q, an f32 cache, or any other D (the f32-compute paths,
-// bf16 q against an f32 cache, the smoke models' D 16) keeps the
-// CUDA-core online softmax of attn_common.cuh (f32 products: TF32 would
-// lose the f32 parity the smoke checks hold), on the same 64-row grid.
+// block.  f32 q, an f32 cache, or any other D (the f32-compute paths: the
+// LM sweep's QAT and probes, the f32 card-against-CPU checks; bf16 q
+// against an f32 cache; the smoke models' D 16 and 32) runs on the CUDA
+// cores (`flash_cc<QT, KT, DP>`, below), in f32: TF32 would lose the f32
+// parity those checks hold.
+//
+// The CUDA-core route replaces the CUDA-core half of the Pallas `_kernel`
+// (src/repro/kernels/flash_attn/flash_attn.py:55, pallas_call :174).  What
+// bounds it: at the LM sweep's shapes (13 probes x batch 8, Sq = Skv 32,
+// causal, f32) the bytes of q, k, v and o, 0.041 ms at granite-8b's heads
+// against 0.013 ms of f32 FMAs at 67 TFLOP/s, so the CUDA cores are the
+// right unit and the design moves bytes and keeps the FMA pipes fed:
+//  * register tiles: thread (rg, kg) of 128 owns 4 rows x 4 keys of S and
+//    4 rows x DP / 8 dims of O; Q, K, V and P are read from shared memory
+//    as 16-byte (or, for a bf16 cache, 8-byte) quads, 8 FMAs per quad of S,
+//    in layouts without bank conflicts (Q's quads XOR-swizzled by row, K
+//    rows padded by 16 bytes, P rows of 40 floats);
+//  * 32-key tiles: the sweep's causal query tiles see 16 or 32 keys, and
+//    P V stops at the tile's last live quad of keys;
+//  * K and V in buffers of their own, 16-byte cp.async, the next K tile in
+//    flight through the softmax and P V, the next V tile through the next
+//    S (a ring of two stages); the first tile is requested before kv_len
+//    arrives.  A bf16 cache stays bf16 in shared memory (half the bytes)
+//    and is widened exactly at its read; rows that are not whole 16-byte
+//    chunks (D 20, odd D) load element by element;
+//  * shared memory: Q (64 x DP f32, scaled once), K, V and P: 74.5 KB at D
+//    128 with an f32 cache (58.5 KB bf16), 42.5 KB at D 64, 26.5 KB at D
+//    <= 32 (DP is D rounded up to 32, 64 or 128, zeros past D).  At D 128
+//    168 registers a thread and 3 blocks an SM; at D <= 64 128 registers
+//    and 4 blocks (ptxas's reports: build/kernels/*.log).
+// Numerics of the CUDA-core route: each score a sum over d in
+// ascending order from q already scaled (`__fmul_rn(q, scale)`); masked
+// scores out of the max and p = 0; `expf`; a row's sum as the butterfly
+// of a warp's shuffle tree over its 32 keys; each P V sum over keys in
+// ascending order, then acc * alpha + pv in one FMA; acc / max(l, 1e-30),
+// so a row with no live key is 0.  On one key tile (Skv <= 32) the outputs
+// equal the plain version's on the card bit for bit (chip_smoke's
+// phase_flash prints the differences).
 //
 // The tensor-core route: one warpgroup of 4 warps, each owning 16 of the
 // 64 rows.  S = Q K^T is wgmma.m64n64k16 over D / 16 k-steps and O += P V
@@ -59,7 +94,8 @@
 // f32 plain version, the split 0.14-0.35%); the output is
 // acc * (1 / max(l, 1e-30)), within an f32 ulp of the reference's
 // quotient, so a row with no live key is 0.
-// Grid: (query tiles * kv_split, Hkv, B), the last query tile first: under
+// Grid (both routes; kv_split 1 on the CUDA cores): (query tiles *
+// kv_split, Hkv, B), the last query tile first: under
 // a causal mask it has the most keys, so the longest blocks start in the
 // first wave and the short ones fill the last.  When the query tiles alone
 // give fewer blocks than SMs (the train microbatch, B 1, Sq 128: 64
@@ -71,14 +107,42 @@
 // tree (rank r + step into rank r at step 1, 2, 4), so two launches on
 // the same inputs are bit-equal.  The cross decode then runs 512 blocks
 // of 4 key tiles.
-#include "attn_common.cuh"
-
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 #include <type_traits>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+
+constexpr float NEG_INF = -1e30f;   // a masked score
+constexpr int MAX_D = 128;          // head dim
+constexpr int MAX_G = 64;           // query heads a KV head
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy global -> shared; pred false fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 namespace tc {
 
@@ -101,34 +165,12 @@ template <int HD> __host__ __device__ constexpr size_t recv_bytes() {
   return (size_t)(HD / 8 + 1) * NT * 16;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte copy global -> shared; pred false fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // 2^x, flushing results below 2^-126 to 0 (one MUFU op: exp2f adds a
 // rescaling for subnormal results, which a probability never needs)
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 // the part of (lo, hi) that packing to bf16 rounded away, packed to bf16
 __device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi,
@@ -321,7 +363,7 @@ flash_wg(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < ND; ++i)
     oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.0f;
-  float m_r[2] = {attn::NEG_INF, attn::NEG_INF}, l_r[2] = {0.0f, 0.0f};
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.0f, 0.0f};
 
   // this block's tiles: part, part + NSPLIT, ...
   for (int t = part, i = 0; t < n_tiles; t += NSPLIT, ++i) {
@@ -373,7 +415,7 @@ flash_wg(const bf16* __restrict__ q, const bf16* __restrict__ k,
       lim[i2] = (causal ? min(len, qp[i2] + 1) : len) - k0 - 2 * t4;
     float alpha[2], sum[2] = {0.0f, 0.0f};
     auto softmax = [&](auto masked) {
-      float mx[2] = {attn::NEG_INF, attn::NEG_INF};
+      float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
 #pragma unroll
@@ -575,66 +617,379 @@ int launch_split(int kv_split, const void* q, const void* k, const void* v,
 
 }  // namespace tc
 
-// CUDA-core path: attn::attend on the same grid
-template <typename QT, typename KT>
-__global__ void __launch_bounds__(attn::NT)
-flash_attn_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
-                  const KT* __restrict__ v, const int* __restrict__ kv_len,
-                  const int* __restrict__ q_offset, QT* __restrict__ o,
-                  int Sq, int Skv, int Hq, int Hkv, int D, int bq,
-                  int causal, float scale) {
-  extern __shared__ float smem[];
-  const attn::Smem s = attn::carve(smem, D);
-  const int qt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int g = Hq / Hkv;
-  const int R = bq * g;                 // row r: position r / g, head r % g
-  const int q0 = qt * bq;
-  const int len = min(max(kv_len[b], 0), Skv);
-  const int q_off = q_offset[0];
+namespace cc {
 
-  for (int e = threadIdx.x; e < R * D; e += attn::NT) {
-    const int r = e / D, d = e % D;
-    const int qpos = q0 + r / g, h = kvh * g + r % g;
-    s.q[e] = qpos < Sq
-        ? __fmul_rn(attn::to_f32(q[(((size_t)b * Sq + qpos) * Hq + h) * D + d]), scale)
-        : 0.0f;
+constexpr int NT = 128;             // four warps
+constexpr int ROWS = 64;            // query rows a block
+constexpr int BN = 32;              // keys a tile
+constexpr int PSTRIDE = BN + 8;     // floats a row of P in shared memory
+
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ float to_f32<bf16>(bf16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// four consecutive elements as f32: one 16-byte load of f32, one 8-byte
+// load of bf16 widened exactly (a bf16 is the top half of its f32)
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void st4(bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Shared memory of a block (bytes): Q (ROWS x DP f32, pre-scaled; the
+// 16-byte quads of row r XOR-swizzled by r & 7), K (BN rows of DP
+// elements in the cache's type, padded by 16 bytes), V (BN x DP, the
+// cache's type) and P (ROWS x PSTRIDE f32).  DP is D rounded up to 32, 64
+// or 128; the dims past D are zeros in Q and K.
+template <typename KT, int DP> struct Layout {
+  static constexpr int KROW = DP + 16 / (int)sizeof(KT);
+  static constexpr size_t Q = (size_t)ROWS * DP * 4;
+  static constexpr size_t K = (size_t)BN * KROW * sizeof(KT);
+  static constexpr size_t V = (size_t)BN * DP * sizeof(KT);
+  static constexpr size_t P = (size_t)ROWS * PSTRIDE * 4;
+  static constexpr size_t bytes = Q + K + V + P;
+};
+
+// Keys [k0, k0 + BN) of one (batch, KV head) slab (rows `row` elements
+// apart) into shared-memory rows `stride` elements apart, keys at or past
+// n_live as zeros: 16-byte cp.async when a row is whole 16-byte chunks,
+// else element by element.
+template <typename KT>
+__device__ __forceinline__ void load_tile(KT* dst, int stride,
+                                          const KT* src, size_t row, int k0,
+                                          int n_live, int D, bool vec) {
+  if (vec) {
+    constexpr int E = 16 / sizeof(KT);
+    const int ch = D / E;
+    for (int e = threadIdx.x; e < BN * ch; e += NT) {
+      const int j = e / ch, c = e - j * ch;
+      const bool ok = k0 + j < n_live;
+      cp_async16(smem_u32(dst + j * stride + c * E),
+                 src + (ok ? (size_t)(k0 + j) * row : 0) + c * E, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < BN * D; e += NT) {
+      const int j = e / D, d = e - j * D;
+      dst[j * stride + d] = k0 + j < n_live
+          ? src[(size_t)(k0 + j) * row + d] : from_f32<KT>(0.0f);
+    }
   }
-  int n_pos = len;
-  if (causal) n_pos = min(n_pos, max(q_off + q0 + bq, 0));
+}
+// zeros over rows [from, BN) of a tile, each thread over the elements it
+// loaded itself (its own copies have landed once it has waited for them)
+template <typename KT>
+__device__ __forceinline__ void zero_rows(KT* dst, int stride, int from,
+                                          int D, bool vec) {
+  if (vec) {
+    constexpr int E = 16 / sizeof(KT);
+    const int ch = D / E;
+    for (int e = threadIdx.x; e < BN * ch; e += NT) {
+      const int j = e / ch, c = e - j * ch;
+      if (j >= from)
+        *reinterpret_cast<uint4*>(dst + j * stride + c * E) =
+            make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < BN * D; e += NT) {
+      const int j = e / D;
+      if (j >= from) dst[j * stride + e - j * D] = from_f32<KT>(0.0f);
+    }
+  }
+}
+
+// Thread (rg, kg) of the block, rg = warp * 4 + lane / 8 and kg = lane %
+// 8, owns rows rg + 16 i (i < 4) of the 64: their scores against keys
+// kg + 8 j (j < 4) of a tile, and their outputs at the dim quads kg + 8 c
+// (c < DP / 32).  A row's eight threads are eight lanes of one warp, so
+// its max and sum are three shuffles.
+template <typename QT, typename KT, int DP>
+__global__ void __launch_bounds__(NT, DP == 128 ? 3 : 4)
+flash_cc(const QT* __restrict__ q, const KT* __restrict__ k,
+         const KT* __restrict__ v, const int* __restrict__ kv_len,
+         const int* __restrict__ q_offset, QT* __restrict__ o, int Sq,
+         int Skv, int Hq, int Hkv, int D, int bq, int causal, float scale) {
+  using L = Layout<KT, DP>;
+  constexpr int QQ = DP / 4;          // quads a Q row
+  constexpr int NQ = DP / 32;         // output quads a thread
+  constexpr int QP = NQ < 2 ? NQ : 2; // output quads a pass over P V
+  extern __shared__ __align__(16) unsigned char cc_smem[];
+  float* Qs = reinterpret_cast<float*>(cc_smem);
+  KT* Ks = reinterpret_cast<KT*>(cc_smem + L::Q);
+  KT* Vs = reinterpret_cast<KT*>(cc_smem + L::Q + L::K);
+  float* Ps = reinterpret_cast<float*>(cc_smem + L::Q + L::K + L::V);
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // the longest tiles first
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int g = Hq / Hkv, R = bq * g, q0 = qt * bq;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int rg = (tid >> 5) * 4 + (lane >> 3), kg = lane & 7;
+  const int ginv = (65536 + g - 1) / g;  // r / g = (r * ginv) >> 16, r < 64
+  const bool kvec = D * (int)sizeof(KT) % 16 == 0, qvec = D % 4 == 0;
 
   const size_t kv_row = (size_t)Hkv * D;
   const KT* kb = k + (size_t)b * Skv * kv_row + (size_t)kvh * D;
   const KT* vb = v + (size_t)b * Skv * kv_row + (size_t)kvh * D;
-  attn::attend<KT>(
-      s, R, D, n_pos,
-      [&](int pos) { return kb + pos * kv_row; },
-      [&](int pos) { return vb + pos * kv_row; },
-      [&](int r, int pos) {
-        return !causal || q_off + q0 + r / g >= pos;
-      },
-      [&](int r, int d, float val) {
-        const int qpos = q0 + r / g, h = kvh * g + r % g;
-        if (qpos < Sq)
-          o[(((size_t)b * Sq + qpos) * Hq + h) * D + d] = attn::from_f32<QT>(val);
-      });
+  // the first tile is requested before kv_len arrives (its rows lie in
+  // the cache either way; V rows past the live keys are zeroed below)
+  load_tile(Ks, L::KROW, kb, kv_row, 0, Skv, D, kvec);
+  cp_async_commit();
+  load_tile(Vs, DP, vb, kv_row, 0, Skv, D, kvec);
+  cp_async_commit();
+  const int len = min(max(kv_len[b], 0), Skv);
+  const int q_off = q_offset[0];
+  for (int e = tid; e < BN * (DP - D); e += NT) {  // K's dims past D
+    const int j = e / (DP - D);
+    Ks[j * L::KROW + D + e - j * (DP - D)] = from_f32<KT>(0.0f);
+  }
+  // Q, scaled (one rounding, as the plain version's q * scale), zeros
+  // past D and in rows outside the tile
+  for (int e = tid; e < ROWS * QQ; e += NT) {
+    const int r = e / QQ, qd = e - r * QQ;
+    const int rq = (r * ginv) >> 16, qpos = q0 + rq;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < R && qpos < Sq) {
+      const QT* src = q + (((size_t)b * Sq + qpos) * Hq + kvh * g + r -
+                           rq * g) * D + 4 * qd;
+      if (qvec) {
+        if (4 * qd < D) x = ld4(src);
+      } else {
+        float t[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          t[i] = 4 * qd + i < D ? to_f32(src[i]) : 0.0f;
+        x = make_float4(t[0], t[1], t[2], t[3]);
+      }
+      x = make_float4(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale),
+                      __fmul_rn(x.z, scale), __fmul_rn(x.w, scale));
+    }
+    reinterpret_cast<float4*>(Qs)[r * QQ + (qd ^ (r & 7))] = x;
+  }
+
+  // keys past the valid prefix, or (causal) past this tile's last query
+  // position, are dead for every row of the block
+  int n_pos = len;
+  if (causal) n_pos = min(n_pos, max(q_off + min(q0 + bq, Sq), 0));
+  const int n_tiles = (n_pos + BN - 1) / BN;
+  // the last live key of each of this thread's rows
+  int last[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = rg + 16 * i;
+    last[i] = causal ? min(len - 1, q_off + q0 + ((r * ginv) >> 16))
+                     : len - 1;
+  }
+  float acc[4][NQ][4], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NQ; ++c)
+      acc[i][c][0] = acc[i][c][1] = acc[i][c][2] = acc[i][c][3] = 0.0f;
+  }
+  const float4* Q4 = reinterpret_cast<const float4*>(Qs);
+  const int xr = rg & 7;                // the Q swizzle of this thread's rows
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BN;
+    cp_async_wait<1>();                 // K of tile t
+    __syncthreads();
+    // S = (q * scale) K^T: each score a sum over d in ascending order
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.0f;
+#pragma unroll 4
+    for (int qd = 0; qd < QQ; ++qd) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = Q4[(rg + 16 * i) * QQ + (qd ^ xr)];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = ld4(Ks + (kg + 8 * j) * L::KROW + 4 * qd);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
+    }
+    __syncthreads();                    // every read of K is done
+    if (t + 1 < n_tiles)
+      load_tile(Ks, L::KROW, kb, kv_row, k0 + BN, n_pos, D, kvec);
+    cp_async_commit();
+
+    // online softmax: masked scores leave the max out and give p = 0
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (k0 + kg + 8 * j <= last[i]) mx = fmaxf(mx, s[i][j]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx);
+      alpha[i] = expf(m[i] - m_new);
+      float p[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p[j] = k0 + kg + 8 * j <= last[i] ? expf(s[i][j] - m_new) : 0.0f;
+        Ps[(rg + 16 * i) * PSTRIDE + kg + 8 * j] = p[j];
+      }
+      // the row's sum as a butterfly over its 32 keys (key pairs 16, 8,
+      // 4, 2, 1 apart): the order of a warp's shuffle tree over a 32-key
+      // row
+      float sum = (p[0] + p[2]) + (p[1] + p[3]);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      l[i] = fmaf(l[i], alpha[i], sum);
+      m[i] = m_new;
+    }
+    cp_async_wait<1>();                 // V of tile t
+    if (t == 0 && n_pos < BN) zero_rows(Vs, DP, n_pos, D, kvec);
+    __syncthreads();
+
+    // acc = acc * alpha + P V: each sum over the live key quads in
+    // ascending order (keys past the live ones have p = 0 and V = 0)
+    const int kq = (min(BN, n_pos - k0) + 3) >> 2;
+#pragma unroll
+    for (int c0 = 0; c0 < NQ; c0 += QP) {
+      float pv[4][QP][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < QP; ++c)
+          pv[i][c][0] = pv[i][c][1] = pv[i][c][2] = pv[i][c][3] = 0.0f;
+      for (int jq = 0; jq < kq; ++jq) {
+        float4 p4[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          p4[i] = ld4(Ps + (rg + 16 * i) * PSTRIDE + 4 * jq);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float4 vv[QP];
+#pragma unroll
+          for (int c = 0; c < QP; ++c)
+            vv[c] = ld4(Vs + (4 * jq + jj) * DP + 4 * (kg + 8 * (c0 + c)));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = comp(p4[i], jj);
+#pragma unroll
+            for (int c = 0; c < QP; ++c) {
+              pv[i][c][0] = fmaf(p, vv[c].x, pv[i][c][0]);
+              pv[i][c][1] = fmaf(p, vv[c].y, pv[i][c][1]);
+              pv[i][c][2] = fmaf(p, vv[c].z, pv[i][c][2]);
+              pv[i][c][3] = fmaf(p, vv[c].w, pv[i][c][3]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < QP; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][c0 + c][e] = fmaf(acc[i][c0 + c][e], alpha[i], pv[i][c][e]);
+    }
+    __syncthreads();                    // every read of V and P is done
+    if (t + 1 < n_tiles)
+      load_tile(Vs, DP, vb, kv_row, k0 + BN, n_pos, D, kvec);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // O = acc / max(l, 1e-30): a row with no live key is 0
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = rg + 16 * i, rq = (r * ginv) >> 16, qpos = q0 + rq;
+    if (r >= R || qpos >= Sq) continue;
+    QT* dst = o + (((size_t)b * Sq + qpos) * Hq + kvh * g + r - rq * g) * D;
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < NQ; ++c) {
+      const int d0 = 4 * (kg + 8 * c);
+      const float4 x = make_float4(acc[i][c][0] / den, acc[i][c][1] / den,
+                                   acc[i][c][2] / den, acc[i][c][3] / den);
+      if (qvec) {
+        if (d0 < D) st4(dst + d0, x);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (d0 + e < D) dst[d0 + e] = from_f32<QT>(comp(x, e));
+      }
+    }
+  }
 }
 
-template <typename QT, typename KT>
+template <typename QT, typename KT, int DP>
 int launch(const void* q, const void* k, const void* v, const int* kv_len,
            const int* q_offset, void* o, int B, int Sq, int Skv, int Hq,
            int Hkv, int D, int bq, int causal, float scale,
            cudaStream_t stream) {
-  const size_t smem = attn::smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_kernel<QT, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  constexpr size_t smem = Layout<KT, DP>::bytes;
+  auto kern = flash_cc<QT, KT, DP>;
+  static uint64_t attr_set = 0;           // devices whose limit is raised
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (!(attr_set >> dev & 1)) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set |= uint64_t{1} << dev;
+  }
   dim3 grid((Sq + bq - 1) / bq, Hkv, B);
-  flash_attn_kernel<QT, KT><<<grid, attn::NT, smem, stream>>>(
-      (const QT*)q, (const KT*)k, (const KT*)v, kv_len, q_offset, (QT*)o,
-      Sq, Skv, Hq, Hkv, D, bq, causal, scale);
+  kern<<<grid, NT, smem, stream>>>((const QT*)q, (const KT*)k, (const KT*)v,
+                                   kv_len, q_offset, (QT*)o, Sq, Skv, Hq, Hkv,
+                                   D, bq, causal, scale);
   return (int)cudaGetLastError();
 }
+
+template <typename QT, typename KT>
+int launch_d(const void* q, const void* k, const void* v, const int* kv_len,
+             const int* q_offset, void* o, int B, int Sq, int Skv, int Hq,
+             int Hkv, int D, int bq, int causal, float scale,
+             cudaStream_t s) {
+  if (D <= 32)
+    return launch<QT, KT, 32>(q, k, v, kv_len, q_offset, o, B, Sq, Skv, Hq, Hkv, D, bq, causal, scale, s);
+  if (D <= 64)
+    return launch<QT, KT, 64>(q, k, v, kv_len, q_offset, o, B, Sq, Skv, Hq, Hkv, D, bq, causal, scale, s);
+  return launch<QT, KT, 128>(q, k, v, kv_len, q_offset, o, B, Sq, Skv, Hq, Hkv, D, bq, causal, scale, s);
+}
+
+}  // namespace cc
 
 }  // namespace
 
@@ -654,7 +1009,7 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
   const bool tc_path = q_bf16 && kv_bf16 && (D == 64 || D == 128);
   const bool split_ok = kv_split == 1 || kv_split == 2 || kv_split == 4 ||
                         kv_split == tc::MAX_SPLIT;
-  if (D > attn::MAX_D || Hq % Hkv != 0 || Hq / Hkv > attn::MAX_ROWS ||
+  if (D < 1 || D > MAX_D || Hq % Hkv != 0 || Hq / Hkv > MAX_G ||
       !split_ok || (kv_split > 1 && !tc_path))
     return (int)cudaErrorInvalidValue;
   const int bq = tc::ROWS / (Hq / Hkv);
@@ -666,10 +1021,10 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
         ? tc::launch_split<64>(kv_split, q, k, v, lens, off, o, B, Sq, Skv, Hq, Hkv, bq, causal, scale, s)
         : tc::launch_split<128>(kv_split, q, k, v, lens, off, o, B, Sq, Skv, Hq, Hkv, bq, causal, scale, s);
   if (q_bf16 && kv_bf16)
-    return launch<bf16, bf16>(q, k, v, lens, off, o, B, Sq, Skv, Hq, Hkv, D, bq, causal, scale, s);
+    return cc::launch_d<bf16, bf16>(q, k, v, lens, off, o, B, Sq, Skv, Hq, Hkv, D, bq, causal, scale, s);
   if (q_bf16)
-    return launch<bf16, float>(q, k, v, lens, off, o, B, Sq, Skv, Hq, Hkv, D, bq, causal, scale, s);
+    return cc::launch_d<bf16, float>(q, k, v, lens, off, o, B, Sq, Skv, Hq, Hkv, D, bq, causal, scale, s);
   if (kv_bf16)
-    return launch<float, bf16>(q, k, v, lens, off, o, B, Sq, Skv, Hq, Hkv, D, bq, causal, scale, s);
-  return launch<float, float>(q, k, v, lens, off, o, B, Sq, Skv, Hq, Hkv, D, bq, causal, scale, s);
+    return cc::launch_d<float, bf16>(q, k, v, lens, off, o, B, Sq, Skv, Hq, Hkv, D, bq, causal, scale, s);
+  return cc::launch_d<float, float>(q, k, v, lens, off, o, B, Sq, Skv, Hq, Hkv, D, bq, causal, scale, s);
 }

@@ -2,9 +2,9 @@
 
 Replaces the Pallas TPU kernel `_kernel`
 (src/repro/kernels/flash_attn/flash_attn.py:55, launched at :174 by
-`_flash_attn_call`).  The CUDA kernel is `csrc/flash_attn.cu` (with
-`csrc/attn_common.cuh` for its CUDA-core paths); its header says what
-bounds it on the H100 and how its design answers that.  Routes:
+`_flash_attn_call`).  The CUDA kernel is `csrc/flash_attn.cu`; its
+header says what bounds each route on the H100 and how its design answers
+that.  Routes:
 
 * bf16 q with a bf16 cache at D 64 or 128: the tensor cores (wgmma).
   `flash_plan` decides on the host how many blocks (1, 2, 4 or 8, a
@@ -12,7 +12,8 @@ bounds it on the H100 and how its design answers that.  Routes:
   tiles alone would leave SMs idle; `flash_attn_split_plain` is that
   split and its merge in plain PyTorch.
 * f32 q, an f32 cache (bf16 q against one too) or another head dim: the
-  CUDA-core online softmax, in f32, one block a query tile.
+  CUDA cores, in f32, one block a query tile of 64 rows over 32-key
+  tiles, register-tiled.
 
 ``flash_attn(q, k, v, kv_len, q_offset, causal=True)``: q (B, Sq, Hq, D),
 k/v (B, Skv, Hkv, D) in float32 or bfloat16, ``kv_len`` (B,) int32 valid
@@ -35,7 +36,7 @@ from repro_torch.kernels.attn_common import (DTYPE_FLAG, NEG_INF,
 launches = 0          # kernel launches since the last reset
 
 SMS = 132             # the H100's streaming multiprocessors
-KEY_TILE = 64         # keys a block multiplies at a time
+KEY_TILE = 64         # keys a tensor-core block multiplies at a time
 MAX_SPLIT = 8         # the portable thread block cluster size
 # blocks a key split aims for: a D 64 block leaves room for four on an SM
 SPLIT_TARGET = 4 * SMS

@@ -267,7 +267,10 @@ class ReplicateFallback(TorchDispatchMode):
     entered outside it records), the op runs on the full local tensors
     and its outputs come back replicated; an in-place op writes the
     result back into its DTensor's own shard.  No op computes on a shard
-    it was not meant for.  Every other op goes to DTensor untouched."""
+    it was not meant for.  A view that a local shard's strides refuse
+    (a shard that gloo's re-sharding left non-contiguous) runs again,
+    sharded, on contiguous copies of the shards.  Every other op goes to
+    DTensor untouched."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -280,9 +283,30 @@ class ReplicateFallback(TorchDispatchMode):
         try:
             return func(*args, **kwargs)
         except (NotImplementedError, RuntimeError) as e:
+            if _view_refused(e):
+                c_args, c_kwargs = _contiguous_locals((args, kwargs))
+                return func(*c_args, **c_kwargs)
             if not _no_strategy(e):
                 raise
         return _replicated(func, args, kwargs)
+
+
+def _view_refused(e: Exception) -> bool:
+    """Whether a view of a DTensor failed on its local shard's strides (a
+    shard that a redistribution left non-contiguous: gloo, which has no
+    all-to-all, re-shards by an all-gather and a chunk)."""
+    return "view size is not compatible" in str(e)
+
+
+def _contiguous_locals(tree):
+    """``tree`` with each DTensor's local shard made contiguous, its
+    global shape, stride and placements kept (the op then still runs
+    sharded, as `reshape` would run it)."""
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda a: DTensor.from_local(
+        a.to_local().contiguous(), a.device_mesh, a.placements,
+        run_check=False, shape=a.shape, stride=a.stride())
+        if isinstance(a, DTensor) else a, tree)
 
 
 def _replicated(func, args, kwargs):

@@ -53,6 +53,12 @@ FLASH_CASES = [
     (1, 6, 10, 6, 3, 8, [10], 0, False),         # non-causal
     (3, 4, 9, 8, 2, 32, [9, 0, 4], 2, True),     # row 1 fully masked
     (1, 3, 7, 2, 2, 16, [7], 0, True),           # MHA (g=1)
+    # the LM sweep's attention layouts (f32 on the card's CUDA-core
+    # route): granite-8b g 4 at D 128, granite-moe g 2 and zamba2's shared
+    # block g 1 at D 64; Sq = Skv 32, causal
+    (2, 32, 32, 16, 4, 128, [32, 32], 0, True),
+    (2, 32, 32, 8, 4, 64, [32, 32], 0, True),
+    (2, 32, 32, 4, 4, 64, [32, 32], 0, True),
 ]
 
 

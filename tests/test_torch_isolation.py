@@ -1,6 +1,7 @@
 """The port stands alone: no module of `repro_torch`, not
-`chip_smoke.py` and no port-side example (`examples/*_torch.py`) imports
-jax or the reference package `repro`, and the port's entry points and
+`chip_smoke.py`, no port-side example (`examples/*_torch.py`) and no
+port-side script (`scripts/compare_flash_attn.py`) imports jax or the
+reference package `repro`, and the port's entry points and
 examples run on CUDA by default, raising (not falling back to the CPU)
 where there is none."""
 import torch_threads  # noqa: F401  (first: torch's threads under xdist)
@@ -17,7 +18,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES \
+    + [ROOT / "scripts" / "compare_flash_attn.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 

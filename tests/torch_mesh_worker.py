@@ -5,6 +5,7 @@ sharding on real CPU processes, the gloo backend over a `FileStore`.
     python tests/torch_mesh_worker.py DIR 1    # 1 rank: the (1, 1) search
     python tests/torch_mesh_worker.py DIR 4 scan   # the stacked layout
     python tests/torch_mesh_worker.py DIR 4 embed  # the sharded lookup's gradient
+    python tests/torch_mesh_worker.py DIR 4 train  # a sharded train step
 
 Each rank writes ``DIR/rank<r>.json``.  Four ranks check: the smoke
 decoder's forward with parameters placed by `param_specs` on a (2, 2)
@@ -20,7 +21,10 @@ and restore a stacked checkpoint onto placements.  With ``embed``, four
 ranks take the gradients of a loss over the smoke-sized embedding table
 (vocab 128, d_model 64, placed by `param_specs`) and an lm_head on a (2,
 2) mesh, at 4 x 4096 ids: DTensor then splits the table over its
-vocabulary, and the gradients must equal the unsharded ones.
+vocabulary, and the gradients must equal the unsharded ones.  With
+``train``, four ranks run the smoke granite-8b's f32 loss, backward and
+one AdamW update at 4 x 512 tokens on a (2, 2) mesh, for the test to
+hold against the same step unsharded.
 """
 import json
 import os
@@ -87,6 +91,8 @@ def run(rank: int, world: int, out: str, mode: str = "") -> None:
         doc.update(_restore(mesh_lib, out, rank, scan=True))
     elif mode == "embed":
         doc.update(_embed_grad(mesh_lib))
+    elif mode == "train":
+        doc.update(_train(mesh_lib))
     elif world == 1:
         mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), device="cpu")
         kw = dict(SEARCH, key=key, device="cpu")
@@ -238,6 +244,63 @@ def _embed_grad(mesh_lib) -> dict:
     return {"embed_grad": [[float((g.full_tensor() - w).abs().max()),
                             float(w.abs().max())]
                            for g, w in zip(got, want)]}
+
+
+def _train(mesh_lib) -> dict:
+    """One f32 train step of the smoke granite-8b at 4 x 512 tokens:
+    `train_loss`, its backward and one AdamW update (the smoke config's
+    own `TrainCfg`), with parameters placed by `param_specs` and the batch
+    by `batch_spec` on a (2, 2) mesh, against the same step unsharded.
+    For the loss, each gradient, each first moment and each updated
+    parameter: the largest difference and the leaf's largest magnitude;
+    and how many leaves the update moved."""
+    from torch.distributed.tensor import distribute_tensor
+    import repro_torch.configs as cfgs
+    from repro_torch.launch import sharding
+    from repro_torch.models import get_api
+    from repro_torch.optim import adamw
+    from repro_torch.tdsim import policy as td_policy
+    cfg, params = _smoke()
+    ids = np.random.default_rng(7).integers(0, cfg.vocab, (4, 513))
+    batch = {"tokens": torch.from_numpy(ids[:, :-1].astype(np.int32)),
+             "labels": torch.from_numpy(ids[:, 1:].astype(np.int32))}
+    loss_fn = get_api(cfg)["train_loss"]
+    tcfg = cfgs.get_smoke("granite-8b").train
+
+    def step(tree, b):
+        leaves = [t for _, t in adamw.tree_leaves_with_path(tree)]
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = loss_fn(tree, b, cfg, td_policy.PRECISE)
+        loss.backward()
+        grads = adamw.tree_map(lambda t: t.grad, tree)
+        new = adamw.tree_map(lambda t: t.detach().clone(), tree)
+        opt = adamw.init_opt_state(new)
+        new, opt, _ = adamw.apply_updates(new, grads, opt, tcfg)
+        return loss.detach(), grads, opt.mu, new
+
+    want = step(adamw.tree_map(lambda t: t.clone(), params), batch)
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device="cpu")
+    placed = sharding.distribute(
+        params, sharding.param_specs(params, mesh), mesh)
+    d_batch = {k: distribute_tensor(v, mesh, sharding.placements(
+        sharding.batch_spec(mesh, 4, 2), mesh), src_data_rank=None)
+        for k, v in batch.items()}
+    with sharding.sharded_region(mesh):
+        got = step(placed, d_batch)
+
+    def errs(a, b):
+        return [[float((x.full_tensor() - y).abs().max()),
+                 float(y.abs().max())] for (_, x), (_, y) in
+                zip(_paths(a), _paths(b))]
+    return {"train_loss": [float((got[0].full_tensor() - want[0]).abs()),
+                           float(want[0].abs())],
+            "train_grads": errs(got[1], want[1]),
+            "train_mu": errs(got[2], want[2]),
+            "train_params": errs(got[3], want[3]),
+            "train_moved": sum(not torch.equal(x, y) for (_, x), (_, y) in
+                               zip(_paths(want[3]), _paths(params))),
+            "train_leaves": len(_paths(params))}
 
 
 def _leaves(tree):
